@@ -1,13 +1,13 @@
-"""Smoke test of the PyTorch port on one CUDA card: builds kernel K1 from the
-repository's sources, checks it against its plain PyTorch version, drives
-single-frame object reconstruction through its entry point, and times the
-batched Gauss-Newton reconstruction at the benchmark's shapes.
+"""Smoke test of the PyTorch port on one CUDA card: builds kernels K1 and K2
+from the repository's sources, checks each against its plain PyTorch
+version, drives single-frame object reconstruction and stereo tracking
+through their entry points, and times them.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. K1's build time (nvcc, sm_90a);
+  2. K1's and K2's builds (one nvcc each, started together, sm_90a);
   3. K1 against its plain version at N in {7, 300, 2048, 8192} rows;
   4. `dspslam_tpu_torch.apps.reconstruct_frame.main` on the synthetic frame
      with a seeded random full-width DeepSDF experiment dir (B=8, P=256,
@@ -16,7 +16,22 @@ Phases (any failure exits non-zero, and no result line is printed):
      against the CPU;
   5. GN at bench.py::bench_gn's inputs, timed with CUDA events, with K1 and
      with sdf_and_input_grad bound to the plain version; the two paths'
-     poses and codes are compared after 1 and 10 iterations.
+     poses and codes are compared after 1 and 10 iterations;
+  6. K2 against its plain version: exact on integer images at every KITTI
+     pyramid shape (376x1241 ... 105x346) and 49x130, equal corner masks
+     and relative error <= 1e-6 on resized levels; time per launch at
+     376x1241 and per stereo frame (16 level maps), CUDA events, in turns
+     plain, kernel, kernel, plain; the bound from the instructions per
+     pixel in K2's SASS (`cuobjdump -sass` of the built library);
+  7. stereo tracking (`Tracker.process_stereo` + `flush`) at KITTI 00-02's
+     settings (configs/kitti_00_02.json: 376x1241, 2000 features, 8 levels)
+     over a 30-frame LayeredWorld street turn, non-pipelined and
+     pipelined: 0 lost frames, ATE < 3% of travel, K2 launched 16 times per
+     frame tracked (plus 16 per re-tracked frame), poses within 1e-4 of a
+     run with FAST bound to K2's plain version, one chained frame program
+     free of host syncs (`torch.cuda.set_sync_debug_mode("error")`), the
+     steady-state ms per frame and a `torch.profiler` table of the
+     pipelined steady state.
 The last lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 """
@@ -25,10 +40,13 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
@@ -38,14 +56,38 @@ if not torch.cuda.is_available():
 
 from dspslam_tpu_torch.apps import reconstruct_frame  # noqa: E402
 from dspslam_tpu_torch.config import SystemConfig  # noqa: E402
-from dspslam_tpu_torch.kernels import decoder_fused  # noqa: E402
+from dspslam_tpu_torch.datasets.synthetic import (  # noqa: E402
+    blob_images, kitti_turn_sequence, render_stereo_u8,
+)
+from dspslam_tpu_torch.frontend import orb  # noqa: E402
+from dspslam_tpu_torch.kernels import _nvcc, decoder_fused, fast_score  # noqa: E402
 from dspslam_tpu_torch.models import deepsdf  # noqa: E402
 from dspslam_tpu_torch.shape import gn  # noqa: E402
+from dspslam_tpu_torch.slam import frame_step, tracking  # noqa: E402
+from dspslam_tpu_torch.utils.evaluation import ate_rmse  # noqa: E402
 from dspslam_tpu_torch.utils.io import read_mesh_ply  # noqa: E402
 
 DEV = torch.device("cuda")
 SRC = "dspslam_tpu_torch/csrc/decoder_fused.cu"
 REPLACES = "dspslam_tpu/ops/pallas/decoder_kernel.py:106"
+K2_SRC = "dspslam_tpu_torch/csrc/fast_score.cu"
+K2_REPLACES = "dspslam_tpu/ops/pallas/fast_kernel.py:41"
+KITTI_CONFIG = "configs/kitti_00_02.json"
+# published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and fp32
+# (CUDA-core) operations/s
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# K1 work per decoder row: forward 1,835,520 + backward 1,835,008
+# multiply-adds, 2 operations each (PERF.md section 5)
+K1_OPS_PER_ROW = 2 * (1_835_520 + 1_835_008)
+# K2 is counted in instructions, read from its SASS (k2_instructions). Each
+# of the 4 x 132 schedulers issues one warp instruction, 32 lanes, per clock:
+# 33.5e12 lane-instructions/s, the fp32 peak without the FMA's factor 2.
+# Integer and logic instructions go to the ALU pipe, 16 lanes per scheduler
+# (64 INT32 lanes per SM): half that rate.
+ISSUE_PER_S = FP32_OPS_PER_S / 2
+ALU_PER_S = FP32_OPS_PER_S / 4
+ALU_OPS = ("LOP3", "SHF", "ISETP", "SEL", "IADD3", "VIADD", "LEA", "PRMT", "PLOP3", "VIMNMX")
 # GN comparison tolerances, kernel path vs plain path on identical inputs.
 # K1 and cuBLAS sum in different orders (~1e-6 relative in J and r); one GN
 # step carries that into the pose at about the solve's condition number.
@@ -90,6 +132,74 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(events) -> tuple[str, float]:
+    """(attribute name, total device time in ms of the kernels among
+    `events`); the attribute was renamed from the cuda_ to the device_
+    form. Operator rows repeat their kernels' time and are left out."""
+    key = "self_device_time_total" if hasattr(events[0], "self_device_time_total") else "self_cuda_time_total"
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    return key, sum(getattr(e, key) for e in kernels) / 1e3
+
+
+def kernel_device_ms(fn, reps: int, kernel: str) -> float:
+    """Device time per call of the kernels whose name holds `kernel`, from
+    torch.profiler over `reps` calls of `fn`."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    check(bool(events), f"the profiler saw no {kernel} launch")
+    return device_ms(events)[1] / reps
+
+
+def bound(nbytes: float, ops_ms: float) -> tuple[float, str]:
+    """Least time in ms for the work on this card, given the least time of
+    its operations, and what bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= ops_ms else (ops_ms, "operations")
+
+
+def k2_instructions(so: str) -> dict:
+    """Instructions each pixel issues in K2, from the SASS of its library
+    (`cuobjdump -sass`): the section every in-image thread runs after the
+    tile is staged, from the barrier to the store, less the run tests that a
+    corner found earlier lets a thread skip, and less the staging loop. So a
+    lower bound. `alu` counts the integer and logic ones among them."""
+    tool = os.path.join(os.path.dirname(_nvcc.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    code, on = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            on = "fast_score_kernel" in line
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if on and m:
+            code.append((int(m.group(1), 16), m.group(2)))
+    start = next(i for i, (_, t) in enumerate(code) if t.startswith("BAR.SYNC"))
+    stop = max(i for i, (_, t) in enumerate(code) if t.endswith("EXIT"))
+    counts, skip_to = {"all": 0, "alu": 0}, -1
+    for addr, text in code[start:stop]:
+        if addr < skip_to:
+            continue
+        counts["all"] += 1
+        op = text.split()[1] if text.startswith("@") else text.split()[0]
+        counts["alu"] += op.split(".")[0] in ALU_OPS
+        branch = re.match(r"@!?U?P\d BRA (0x[0-9a-f]+)", text)
+        if branch and int(branch.group(1), 16) > addr:
+            skip_to = int(branch.group(1), 16)
+    check(counts["all"] > 100, f"K2's SASS parsed to {counts}")
+    return counts
+
+
+def k2_ops_ms(instr: dict, px: int) -> float:
+    """Least time in ms for `px` pixels' instructions: issue or ALU pipe."""
+    return max(instr["all"] * px / ISSUE_PER_S, instr["alu"] * px / ALU_PER_S) * 1e3
 
 
 def phase_kernel(dec) -> dict:
@@ -238,6 +348,187 @@ def phase_gn(name: str) -> dict:
     return ms
 
 
+def k2_levels(left: np.ndarray, right: np.ndarray, params) -> list:
+    """The 16 level images of one stereo frame's two pyramids, on the card."""
+    out = []
+    for img in (left, right):
+        t = torch.from_numpy(img).to(DEV).float()
+        for level, (h, w) in enumerate(orb.level_shapes(params, *img.shape)):
+            out.append((t if level == 0 else orb.resize(t, h, w)).unsqueeze(0).contiguous())
+    return out
+
+
+def phase_fast(frame0, params, so: str, name: str) -> dict:
+    t_lo, t_hi = float(params.min_threshold), float(params.fast_threshold)
+    max_err = 0.0
+    shapes = orb.level_shapes(params, 376, 1241) + [(49, 130)]
+    for i, (h, w) in enumerate(shapes):
+        x = torch.from_numpy(blob_images(1, h, w, seed=i)).to(DEV)
+        out = fast_score.fast_score_map(x, t_lo, t_hi, orb.BOOST)
+        torch.cuda.synchronize()
+        ref = fast_score.fast_score_map_plain(x, t_lo, t_hi, orb.BOOST)
+        err = float((out - ref).abs().max())
+        max_err = max(max_err, err)
+        check(bool(torch.equal(out, ref)), f"K2 differs from its plain version at {h}x{w}: {err}")
+        check(int((ref >= orb.BOOST).sum()) > 0, f"no high-tier corner at {h}x{w}")
+    print(f"[6] K2 vs plain on integer images at {len(shapes)} shapes "
+          f"({shapes[0][0]}x{shapes[0][1]} ... {shapes[-2][0]}x{shapes[-2][1]}, 49x130): exact")
+
+    levels = k2_levels(*frame0, params)
+    for x in levels:
+        out = fast_score.fast_score_map(x, t_lo, t_hi, orb.BOOST)
+        ref = fast_score.fast_score_map_plain(x, t_lo, t_hi, orb.BOOST)
+        check(bool(torch.equal(out > 0, ref > 0) and torch.equal(out >= orb.BOOST, ref >= orb.BOOST)),
+              f"K2 corner masks differ on a {tuple(x.shape[1:])} level")
+        rel = float(((out - ref).abs() / ref.abs().clamp(min=1.0)).max())
+        max_err = max(max_err, float((out - ref).abs().max()))
+        check(rel <= 1e-6, f"K2 relative error {rel} on a {tuple(x.shape[1:])} level")
+    print(f"[6] K2 vs plain on the 16 level images of a KITTI-shaped stereo frame "
+          f"(resized levels, non-integer): equal corner masks, max abs err {max_err:.3e}")
+
+    full = levels[0]
+    per_launch = {"plain": [], "kernel": []}
+    per_frame = {"plain": [], "kernel": []}
+    for path in ("plain", "kernel", "kernel", "plain"):
+        fn = fast_score.fast_score_map if path == "kernel" else fast_score.fast_score_map_plain
+        per_launch[path].append(cuda_ms(lambda: fn(full, t_lo, t_hi, orb.BOOST), 50))
+        per_frame[path].append(cuda_ms(lambda: [fn(x, t_lo, t_hi, orb.BOOST) for x in levels], 20))
+    ms = {k: float(np.mean(v)) for k, v in per_launch.items()}
+    frame_ms = {k: float(np.mean(v)) for k, v in per_frame.items()}
+    dev_launch = kernel_device_ms(lambda: fast_score.fast_score_map(full, t_lo, t_hi, orb.BOOST),
+                                  50, "fast_score_kernel")
+    dev_frame = kernel_device_ms(
+        lambda: [fast_score.fast_score_map(x, t_lo, t_hi, orb.BOOST) for x in levels],
+        20, "fast_score_kernel")
+    px = full.numel()
+    px_frame = sum(x.numel() for x in levels)
+    instr = k2_instructions(so)
+    b_launch, by_launch = bound(8.0 * px, k2_ops_ms(instr, px))
+    b_frame, by_frame = bound(8.0 * px_frame, k2_ops_ms(instr, px_frame))
+    print(f"[6] K2's SASS: {instr['all']} instructions per pixel, {instr['alu']} of them on the "
+          f"ALU pipe (a lower bound: without the halo staging loop and the skippable run tests)")
+    print(f"[6] K2 time per launch at 376x1241 ({px} px): kernel {ms['kernel']:.5f} ms "
+          f"({per_launch['kernel'][0]:.5f}, {per_launch['kernel'][1]:.5f}), plain "
+          f"{ms['plain']:.5f} ms ({per_launch['plain'][0]:.5f}, {per_launch['plain'][1]:.5f}), "
+          f"bound {b_launch:.5f} ms ({by_launch}) on {name}")
+    print(f"[6] K2 time per stereo frame (16 level maps, {px_frame} px): kernel "
+          f"{frame_ms['kernel']:.5f} ms ({per_frame['kernel'][0]:.5f}, {per_frame['kernel'][1]:.5f}), "
+          f"plain {frame_ms['plain']:.5f} ms ({per_frame['plain'][0]:.5f}, {per_frame['plain'][1]:.5f}), "
+          f"bound {b_frame:.5f} ms ({by_frame}) on {name}")
+    print(f"[6] K2 device time (torch.profiler, kernel only): {dev_launch:.5f} ms per launch at "
+          f"376x1241, {dev_frame:.5f} ms per stereo frame; the CUDA-event times above include "
+          f"the host's launch gaps")
+    return {"max_abs_err": max_err, "ms": ms, "frame_ms": frame_ms,
+            "device_ms": dev_launch, "device_frame_ms": dev_frame,
+            "bound_ms": b_launch, "bound_by": by_launch}
+
+
+def run_tracker(system_cfg, images, pipelined: bool) -> tuple:
+    """Drive Tracker.process_stereo + flush over the sequence; returns the
+    tracker and the wall time of each call (synchronised at the end)."""
+    tr = tracking.tracker_from_system_config(system_cfg, pipelined=pipelined)
+    walls = []
+    t_start = None
+    for k, (left, right) in enumerate(images):
+        if k == 5:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        t0 = time.perf_counter()
+        tr.process_stereo(left, right, 0.1 * k)
+        walls.append(time.perf_counter() - t0)
+    tr.flush()
+    torch.cuda.synchronize()
+    steady = (time.perf_counter() - t_start) / (len(images) - 5)
+    return tr, walls, steady
+
+
+def trajectory_wc(tr) -> np.ndarray:
+    return np.stack([np.linalg.inv(T.astype(np.float64)) for _, T, _ in tr.trajectory])
+
+
+def phase_tracking(system_cfg, images, poses, name: str) -> dict:
+    n = len(images)
+    travel = float(np.linalg.norm(np.diff(poses[:, :3, 3], axis=0), axis=1).sum())
+    out = {"launches": 0}
+    for pipelined in (False, True):
+        form = "pipelined" if pipelined else "non-pipelined"
+        # the main path: counts from 0 just before, read just after
+        fast_score.fast_score_map.launches = 0
+        decoder_fused.sdf_and_input_grad.launches = 0
+        tr, walls, steady = run_tracker(system_cfg, images, pipelined)
+        launches = fast_score.fast_score_map.launches
+        check(decoder_fused.sdf_and_input_grad.launches == 0, "K1 ran on the tracking path")
+        out["launches"] += launches
+        lost = sum(1 for _, _, l in tr.trajectory if l)
+        ate = ate_rmse(trajectory_wc(tr), poses)["rmse"]
+        print(f"[7] {form}: {len(tr.trajectory)} frames, {lost} lost, state {tr.state.name}, "
+              f"{len(tr.map.keyframes)} keyframes, {len(tr.map.points)} map points, "
+              f"ATE {ate:.5f} m over {travel:.3f} m; K2 launches {launches} "
+              f"({tr.n_redone} frames re-tracked)")
+        check(len(tr.trajectory) == n and lost == 0, f"{form}: {lost} lost frames")
+        check(tr.state == tracking.State.OK, f"{form}: ends in {tr.state}")
+        check(ate < 0.03 * travel, f"{form}: ATE {ate} m >= 3% of {travel} m")
+        check(launches == 16 * (n + tr.n_redone),
+              f"{form}: K2 launched {launches} times, expected 16 x ({n} + {tr.n_redone})")
+        # the same drive with FAST bound to K2's plain version
+        with mock.patch.object(fast_score, "fast_score_map", fast_score.fast_score_map_plain):
+            ref, _, _ = run_tracker(system_cfg, images, pipelined)
+        dT = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(tr.trajectory, ref.trajectory))
+        check(len(ref.trajectory) == n and dT <= 1e-4, f"{form}: K2 and plain paths differ by {dT}")
+        med = float(np.median(walls[5:])) * 1e3
+        print(f"[7] {form}: K2 vs plain-FAST run, max |d T_cw| over {n} frames {dT:.3e}; "
+              f"steady state (frames 5..{n - 1}): median call {med:.3f} ms, "
+              f"synchronised wall {steady * 1e3:.3f} ms/frame on {name}")
+        out[form] = {"median_ms": med, "wall_ms": steady * 1e3, "ate": ate, "tracker": tr}
+    return out
+
+
+def phase_sync_free(tr, images):
+    """One chained frame program with every input on the card, under
+    torch.cuda.set_sync_debug_mode("error")."""
+    left, right = (tr._upload_image(x) for x in images[-1])
+    _, dev = tr._local_pack()
+    if tr._chain is None:
+        tr._seed_chain()
+    args = (tr.orb_params, tr._radii(), float(tr.cfg.velocity_smoothing), left, right,
+            float(tr.cfg.bf), float(tr.cfg.bf / 0.5), tr.intrinsics, *tr._chain, *dev)
+    frame_step.track_frame_stereo_chained(*args)        # constants cached
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        feats, st, result, chain = frame_step.track_frame_stereo_chained(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(result["T_cw"]).all()), "chained program gave a non-finite pose")
+    print(f"[7] track_frame_stereo_chained under set_sync_debug_mode('error'): no host sync; "
+          f"{int(result['n_inliers'])} inliers")
+
+
+def phase_profile(system_cfg, images, wall_ms_per_frame: float):
+    """torch.profiler over 8 steady pipelined frames: device time by kernel
+    and the device idle share of the window."""
+    tr = tracking.tracker_from_system_config(system_cfg, pipelined=True)
+    for k, (left, right) in enumerate(images[:8]):
+        tr.process_stereo(left, right, 0.1 * k)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for k in range(8, 16):
+            tr.process_stereo(*images[k], 0.1 * k)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    tr.flush()
+    events = prof.key_averages()
+    key, busy_ms = device_ms(events)
+    print(f"[7] profile, 8 pipelined frames: wall {wall_ms:.3f} ms under the profiler, device "
+          f"busy {busy_ms:.3f} ms ({busy_ms / 8:.3f} ms/frame); idle share {1 - busy_ms / wall_ms:.3f} "
+          f"of the profiled wall, {1 - busy_ms / 8 / wall_ms_per_frame:.3f} of the unprofiled "
+          f"{wall_ms_per_frame:.3f} ms/frame")
+    print(events.table(sort_by=key, row_limit=25))
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -247,8 +538,10 @@ def main():
           f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    so = decoder_fused.build()
-    print(f"[2] K1 build (nvcc, sm_90a): {time.perf_counter() - t0:.2f} s -> {os.path.relpath(so)}")
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda mod: mod.build(), (decoder_fused, fast_score)))
+    print(f"[2] K1 and K2 builds (two nvcc, in parallel, sm_90a): {time.perf_counter() - t0:.2f} s "
+          f"-> {', '.join(os.path.relpath(so) for so in libs)}")
 
     dec = deepsdf.params_from_jax(canonical_params_np(seed=1), device=DEV)
     k1 = phase_kernel(dec)
@@ -256,12 +549,35 @@ def main():
         launches = phase_slice(tmp)
     ms = phase_gn(name)
 
+    system_cfg = SystemConfig.from_json(KITTI_CONFIG)
+    params = tracking.tracker_from_system_config(system_cfg, device="cpu").orb_params
+    t0 = time.perf_counter()
+    world, poses, baseline = kitti_turn_sequence(system_cfg.camera)
+    images = render_stereo_u8(world, poses, baseline)
+    print(f"[7] rendered {len(images)} stereo pairs at {images[0][0].shape} in "
+          f"{time.perf_counter() - t0:.1f} s (before any timing)")
+    k2 = phase_fast(images[0], params, libs[1], name)
+    trk = phase_tracking(system_cfg, images, poses, name)
+    phase_sync_free(trk["pipelined"]["tracker"], images)
+    phase_profile(system_cfg, images, trk["pipelined"]["wall_ms"])
+
     print(name)
+    k1_bound, k1_by = bound(4.0 * (8192 * 67 * 2 + 8192 + sum(w.numel() + b.numel() for w, b in zip(dec.weights, dec.biases))),
+                            K1_OPS_PER_ROW * 8192 / FP32_OPS_PER_S * 1e3)
     kernels = [{
         "name": "decoder_fused", "route": "cuda", "source": SRC, "replaces": REPLACES,
         "launches": launches, "max_abs_err": k1["max_abs_err"],
         "ms": k1["times"][8192]["kernel"], "plain_ms": k1["times"][8192]["plain"],
+        "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
         "gn_ms_per_object": ms["kernel"], "gn_plain_ms_per_object": ms["plain"],
+    }, {
+        "name": "fast_score", "route": "cuda", "source": K2_SRC, "replaces": K2_REPLACES,
+        "launches": trk["launches"], "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"]["kernel"], "plain_ms": k2["ms"]["plain"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
+        "device_ms": k2["device_ms"], "frame_ms": k2["frame_ms"]["kernel"],
+        "frame_device_ms": k2["device_frame_ms"], "frame_plain_ms": k2["frame_ms"]["plain"],
+        "tracking_ms_per_frame": {f: trk[f]["median_ms"] for f in ("non-pipelined", "pipelined")},
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

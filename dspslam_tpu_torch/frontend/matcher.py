@@ -1,0 +1,98 @@
+"""Batched ORB descriptor matching.
+
+Port of dspslam_tpu/frontend/matcher.py: one (N, M) Hamming-distance
+matrix (XOR + population count) over which the search modes are candidate
+masks, best / second-best ratio and mutual checks, and the 30-bin
+rotation-consistency histogram. Descriptors are (N, 8) int32, the bit view
+of uint32 words. Thresholds TH_HIGH=100 / TH_LOW=50 and the 0.9 ratio
+follow the reference (ORBmatcher.cc:35-40).
+
+Every function is fixed-shape and free of host syncs: no `.item()`, no
+boolean-mask indexing. `argmin` returns the first minimum, as JAX's does.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+TH_HIGH = 100
+TH_LOW = 50
+HISTO_BINS = 30
+BIG = 1 << 20
+
+
+def _popcount8(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each uint8 (SWAR; unsigned, so shifts are logical)."""
+    x = x - ((x >> 1) & 0x55)
+    x = (x & 0x33) + ((x >> 2) & 0x33)
+    return (x + (x >> 4)) & 0x0F
+
+
+def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """(N, 8) x (M, 8) packed int32 descriptors -> (N, M) int32 distances."""
+    a = desc_a.contiguous().view(torch.uint8)             # (N, 32)
+    b = desc_b.contiguous().view(torch.uint8)
+    x = torch.bitwise_xor(a[:, None, :], b[None, :, :])
+    return torch.sum(_popcount8(x), dim=-1, dtype=torch.int32)
+
+
+def masked_match(dist: torch.Tensor, cand_mask: torch.Tensor, max_dist: int = TH_LOW,
+                 ratio: float | None = 0.9, mutual: bool = True):
+    """Best-candidate matching over a masked (N, M) distance matrix.
+    Returns (match_idx (N,) int32 into M, -1 for unmatched; match_dist (N,))."""
+    d = torch.where(cand_mask, dist, BIG)
+    best_idx = torch.argmin(d, dim=1)
+    best = torch.gather(d, 1, best_idx[:, None])[:, 0]
+    ok = best <= max_dist
+    rows = torch.arange(d.shape[0], device=d.device)
+    if ratio is not None:
+        second = torch.amin(d.scatter(1, best_idx[:, None], BIG), dim=1)
+        ok = ok & (best.to(torch.float32) < ratio * second.to(torch.float32))
+    if mutual:
+        rev_best = torch.argmin(d, dim=0)                 # (M,)
+        ok = ok & (rev_best[best_idx] == rows)
+    return torch.where(ok, best_idx, -1).to(torch.int32), best
+
+
+def window_mask(xy_a, xy_b, radius: float, valid_a, valid_b,
+                level_a=None, level_b=None, level_slack: int = 1) -> torch.Tensor:
+    """(N, M) candidate mask: b within `radius` px of a, both valid, with an
+    optional pyramid-level gate."""
+    d2 = torch.sum((xy_a[:, None, :] - xy_b[None, :, :]) ** 2, dim=-1)
+    mask = (d2 <= radius * radius) & (valid_a[:, None] > 0) & (valid_b[None, :] > 0)
+    if level_a is not None and level_b is not None:
+        mask = mask & (torch.abs(level_a[:, None] - level_b[None, :]) <= level_slack)
+    return mask
+
+
+def rotation_consistency(angles_a, angles_b, match_idx) -> torch.Tensor:
+    """Keep matches whose orientation delta falls in the 3 dominant
+    30-bin histogram bins (ORBmatcher.cc:1601-1645). Returns filtered idx."""
+    matched = match_idx >= 0
+    safe_idx = torch.clamp(match_idx, min=0).to(torch.int64)
+    delta = torch.remainder(angles_a - angles_b[safe_idx], 2 * math.pi)
+    bins = torch.clamp((delta / (2 * math.pi) * HISTO_BINS).to(torch.int64), 0, HISTO_BINS - 1)
+    hist = torch.zeros((HISTO_BINS,), dtype=torch.int32, device=match_idx.device)
+    hist = hist.scatter_add(0, bins, matched.to(torch.int32))
+    third = torch.sort(hist, descending=True).values[2]
+    keep_bin = hist >= torch.clamp(third, min=1)
+    return torch.where(matched & keep_bin[bins], match_idx, -1)
+
+
+def match_by_projection(proj_xy, proj_valid, proj_desc, proj_level, feats: dict,
+                        radius: float, max_dist: int = TH_HIGH,
+                        ratio: float | None = 0.9, level_slack: int | None = None):
+    """Map-point -> frame projection search (ORBmatcher.cc:45-157): each
+    projected point matches the closest descriptor among frame keypoints
+    inside its radius; the octave gate is off unless `level_slack` is
+    given. Returns (idx (N,) int32, dist (N,) int32)."""
+    dist = hamming_matrix(proj_desc, feats["desc"])
+    gated = level_slack is not None
+    cand = window_mask(
+        proj_xy, feats["xy"], radius, proj_valid, feats["valid"],
+        proj_level if gated else None, feats["level"] if gated else None,
+        level_slack=level_slack or 1,
+    )
+    return masked_match(dist, cand, max_dist, ratio, mutual=False)

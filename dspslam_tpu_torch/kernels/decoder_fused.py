@@ -11,9 +11,8 @@ threshold and no fallback. On a CPU tensor it runs
 (forward, then backward by transposed matmuls and ReLU masks), which the
 tests and `chip_smoke.py` hold the kernel against.
 
-The kernel source is compiled with `nvcc` for `sm_90a` on first use into
-`_build/` beside this file (named by the source's hash, so an edited
-source is rebuilt) and bound with ctypes. Weights are given in the
+The kernel source is compiled with `nvcc` for `sm_90a` on first use by
+`kernels/_nvcc.py` and bound with ctypes. Weights are given in the
 `torch.nn.Linear` layout (out, in); the wrapper packs the forward and
 transposed copies into one device buffer once per parameter version.
 """
@@ -21,13 +20,11 @@ transposed copies into one device buffer once per parameter version.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from typing import Sequence
 
 import torch
+
+from . import _nvcc
 
 IN_DIM = 67            # 64 code + 3 xyz
 HID = 512
@@ -38,52 +35,18 @@ CANONICAL_SHAPES = (
     + [(1, HID)]
 )
 
-_SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "csrc", "decoder_fused.cu",
-)
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 _lib = None
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("decoder_fused: nvcc not found (set CUDA_HOME)")
-    return found
 
 
 def build() -> str:
     """Compile the kernel library if needed; returns its path."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    so = os.path.join(_BUILD_DIR, f"libdecoder_fused_{digest}.so")
-    if os.path.exists(so):
-        return so
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", tmp, _SRC,
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    with open(os.path.join(_BUILD_DIR, f"build_{digest}.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"decoder_fused: nvcc failed:\n{proc.stderr}")
-    os.replace(tmp, so)
-    return so
+    return _nvcc.build("decoder_fused")
 
 
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
+        lib = _nvcc.load("decoder_fused")
         lib.dsp_decoder_fused.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,

@@ -187,13 +187,13 @@ def log_sim3(T: torch.Tensor) -> torch.Tensor:
 
 
 def rt_to_mat44(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """(..., 3, 3) + (..., 3) -> (..., 4, 4) homogeneous."""
+    """(..., 3, 3) + (..., 3) -> (..., 4, 4) homogeneous. Built by
+    concatenation: writing a Python scalar into a CUDA tensor would copy
+    it from the host and synchronise."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
-    T = torch.zeros(*batch, 4, 4, dtype=R.dtype, device=R.device)
-    T[..., :3, :3] = R
-    T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
-    return T
+    top = torch.cat([R.expand(*batch, 3, 3), t.expand(*batch, 3)[..., None]], dim=-1)
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:].expand(*batch, 1, 4)
+    return torch.cat([top, bottom], dim=-2)
 
 
 def _det3(M: torch.Tensor) -> torch.Tensor:
@@ -235,3 +235,18 @@ def points_to_pose_jacobian_sim3(points: torch.Tensor) -> torch.Tensor:
     (..., N, 3) -> (..., N, 3, 7) with columns [I | -hat(y) | y]."""
     eye = _eye3(points, points.shape[:-1])
     return torch.cat([eye, -hat(points), points[..., None]], dim=-1)
+
+
+def points_to_pose_jacobian_se3(points: torch.Tensor) -> torch.Tensor:
+    """d(exp(dx) y)/d dx at dx=0 for transformed points y:
+    (..., N, 3) -> (..., N, 3, 6) with columns [I | -hat(y)]."""
+    eye = _eye3(points, points.shape[:-1])
+    return torch.cat([eye, -hat(points)], dim=-1)
+
+
+def adjoint_se3(T: torch.Tensor) -> torch.Tensor:
+    """SE(3) adjoint in [v, w] ordering: (..., 4, 4) -> (..., 6, 6)."""
+    R = T[..., :3, :3]
+    top = torch.cat([R, hat(T[..., :3, 3]) @ R], dim=-1)
+    bottom = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)

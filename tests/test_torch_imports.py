@@ -28,6 +28,11 @@ def _imported_modules(path):
 def test_port_has_sources():
     names = {p.name for p in _sources()}
     assert {"decoder_fused.py", "deepsdf.py", "gn.py", "reconstruct_frame.py"} <= names
+    assert {
+        "_nvcc.py", "fast_score.py", "lie_np.py", "orb.py", "orb_pattern.py", "undistort.py",
+        "matcher.py", "stereo.py", "pose_opt.py", "map.py", "frame_step.py", "tracking.py",
+        "synthetic.py", "evaluation.py",
+    } <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -1,5 +1,5 @@
-"""Kernel K1 (csrc/decoder_fused.cu) on the card, against its plain PyTorch
-version. Every test here needs a CUDA device and skips without one. The
+"""Kernels K1 (csrc/decoder_fused.cu) and K2 (csrc/fast_score.cu) on the
+card, against their plain PyTorch versions. Every test here needs a CUDA device and skips without one. The
 file imports neither JAX nor the JAX package, so on a machine with a card
 it runs without the JAX test harness:
 
@@ -8,13 +8,15 @@ it runs without the JAX test harness:
 Tolerances (from tests/test_pallas_kernel.py): sdf within 1e-5; gradient
 99th-percentile error < 1e-4 with at most max(3, N/1000) rows above 1e-4
 (a point on a ReLU boundary may take the other subgradient).
+K2: exact equality on integer-valued images (integer sums in one order).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from dspslam_tpu_torch.kernels import decoder_fused
+from dspslam_tpu_torch.datasets.synthetic import blob_images
+from dspslam_tpu_torch.kernels import decoder_fused, fast_score
 from dspslam_tpu_torch.models import deepsdf
 
 
@@ -73,3 +75,25 @@ def test_non_canonical_decoder_raises(cuda):
     dec = deepsdf.init_params(cfg, torch.Generator().manual_seed(0), cuda)
     with pytest.raises(ValueError, match="code_len=8"):
         dec.sdf_and_input_grad(torch.zeros((4, 11), device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 376, 1241), (1, 49, 130), (2, 105, 346)])
+def test_k2_kernel_matches_plain(cuda, shape):
+    img = torch.from_numpy(blob_images(*shape, seed=shape[1])).to(cuda)
+    before = fast_score.fast_score_map.launches
+    out = fast_score.fast_score_map(img, 7.0, 20.0, 1e4)
+    torch.cuda.synchronize()
+    assert fast_score.fast_score_map.launches == before + 1
+    ref = fast_score.fast_score_map_plain(img, 7.0, 20.0, 1e4)
+    assert torch.equal(out, ref)
+    assert int((ref >= 1e4).sum()) > 10
+
+
+@pytest.mark.cuda
+def test_k2_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    img = torch.zeros((1, 20, 30), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fast_score.fast_score_map(img.transpose(1, 2))
+    with pytest.raises(ValueError, match="float32"):
+        fast_score.fast_score_map(img.half())
