@@ -8,7 +8,14 @@ through their entry points, and times them.
 Phases (any failure exits non-zero, and no result line is printed):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. K1's and K2's builds (one nvcc each, started together, sm_90a);
-  3. K1 against its plain version at N in {7, 300, 2048, 8192} rows;
+  3. K1 against its plain version at N in {1, 7, 63, 64, 65, 300, 2048,
+     4000, 8192} rows (ragged 64-row tiles), with each 64-row tile on a
+     cluster of 1 and of 2 CTAs; each width's SASS must hold TF32
+     tensor-core instructions (HGMMA ... TF32, `cuobjdump -sass`); time at
+     N = 2048 and 8192 at every width and at the default choice,
+     beside the plain version and the 3xTF32 tensor-core bound, with the
+     SM fill of each width and the weight bytes streamed from L2 (a
+     figure computed from the design, not measured);
   4. `dspslam_tpu_torch.apps.reconstruct_frame.main` on the synthetic frame
      with a seeded random full-width DeepSDF experiment dir (B=8, P=256,
      R=512, S=50, K=1024, 10 iterations): K1 must launch exactly 2 x 10
@@ -18,16 +25,18 @@ Phases (any failure exits non-zero, and no result line is printed):
      with sdf_and_input_grad bound to the plain version; the two paths'
      poses and codes are compared after 1 and 10 iterations;
   6. K2 against its plain version: exact on integer images at every KITTI
-     pyramid shape (376x1241 ... 105x346) and 49x130, equal corner masks
-     and relative error <= 1e-6 on resized levels; time per launch at
-     376x1241 and per stereo frame (16 level maps), CUDA events, in turns
-     plain, kernel, kernel, plain; the bound from the instructions per
-     pixel in K2's SASS (`cuobjdump -sass` of the built library);
+     pyramid shape (376x1241 ... 105x346) and 49x130, and exact on the 16
+     level maps of a stereo frame (resized levels included) in one launch;
+     time per launch at 376x1241 and per stereo frame (one launch for the
+     16 maps), CUDA events, in turns plain, kernel, kernel, plain; the
+     bound from the work (52 lane operations per pixel, 48 more at a
+     low-tier corner, counted on the frame; 8 bytes per pixel); the
+     instructions per pixel in K2's SASS as a diagnostic;
   7. stereo tracking (`Tracker.process_stereo` + `flush`) at KITTI 00-02's
      settings (configs/kitti_00_02.json: 376x1241, 2000 features, 8 levels)
      over a 30-frame LayeredWorld street turn, non-pipelined and
-     pipelined: 0 lost frames, ATE < 3% of travel, K2 launched 16 times per
-     frame tracked (plus 16 per re-tracked frame), poses within 1e-4 of a
+     pipelined: 0 lost frames, ATE < 3% of travel, K2 launched once per
+     frame tracked (plus once per re-tracked frame), poses within 1e-4 of a
      run with FAST bound to K2's plain version, one chained frame program
      free of host syncs (`torch.cuda.set_sync_debug_mode("error")`), the
      steady-state ms per frame and a `torch.profiler` table of the
@@ -73,21 +82,33 @@ REPLACES = "dspslam_tpu/ops/pallas/decoder_kernel.py:106"
 K2_SRC = "dspslam_tpu_torch/csrc/fast_score.cu"
 K2_REPLACES = "dspslam_tpu/ops/pallas/fast_kernel.py:41"
 KITTI_CONFIG = "configs/kitti_00_02.json"
-# published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and fp32
-# (CUDA-core) operations/s
+# published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32
+# (CUDA-core) operations/s and dense TF32 tensor-core operations/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 # K1 work per decoder row: forward 1,835,520 + backward 1,835,008
-# multiply-adds, 2 operations each (PERF.md section 5)
+# multiply-adds, 2 operations each (PERF.md section 5). f32 accuracy on the
+# tensor cores takes three TF32 products per product (3xTF32).
 K1_OPS_PER_ROW = 2 * (1_835_520 + 1_835_008)
-# K2 is counted in instructions, read from its SASS (k2_instructions). Each
-# of the 4 x 132 schedulers issues one warp instruction, 32 lanes, per clock:
-# 33.5e12 lane-instructions/s, the fp32 peak without the FMA's factor 2.
-# Integer and logic instructions go to the ALU pipe, 16 lanes per scheduler
-# (64 INT32 lanes per SM): half that rate.
+K1_TF32_PRODUCTS = 3
+K1_ROWS_PER_BLOCK = 64
+# K2's work: every pixel needs 16 subtractions, 32 low-tier compares
+# (bright and dark) and the run test of its two words (a popcount and a
+# compare each); a low-tier corner also needs the 16 |d| accumulations and
+# 32 high-tier compares (the high tier implies the low one, t_hi >= t_lo).
+# Each of the 4 x 132 schedulers issues one warp instruction, 32 lanes, per
+# clock: 33.5e12 lane operations/s, the fp32 peak without the FMA's factor 2.
+K2_OPS_PER_PX = 16 + 32 + 4
+K2_OPS_PER_CORNER = 16 + 32
 ISSUE_PER_S = FP32_OPS_PER_S / 2
-ALU_PER_S = FP32_OPS_PER_S / 4
-ALU_OPS = ("LOP3", "SHF", "ISETP", "SEL", "IADD3", "VIADD", "LEA", "PRMT", "PLOP3", "VIMNMX")
+K2_PIXELS_PER_THREAD = 2
+# the previous designs' times (PERF.md section 6: the one-thread-per-pixel
+# K2 and the CUDA-core K1, recorded on an NVIDIA H100 80GB HBM3 at 700 W),
+# printed beside this run's
+PREVIOUS = {"k1_ms": {2048: 1.2005, 8192: 2.5528}, "k2_launch_ms": 0.02783,
+            "k2_launch_device_ms": 0.01168, "k2_frame_ms": 0.43187,
+            "k2_frame_device_ms": 0.09405}
 # GN comparison tolerances, kernel path vs plain path on identical inputs.
 # K1 and cuBLAS sum in different orders (~1e-6 relative in J and r); one GN
 # step carries that into the pose at about the solve's condition number.
@@ -164,75 +185,158 @@ def bound(nbytes: float, ops_ms: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= ops_ms else (ops_ms, "operations")
 
 
-def k2_instructions(so: str) -> dict:
-    """Instructions each pixel issues in K2, from the SASS of its library
-    (`cuobjdump -sass`): the section every in-image thread runs after the
-    tile is staged, from the barrier to the store, less the run tests that a
-    corner found earlier lets a thread skip, and less the staging loop. So a
-    lower bound. `alu` counts the integer and logic ones among them."""
+def sass(so: str) -> dict:
+    """{kernel function name: [(address, instruction text)]} of a built
+    library, from `cuobjdump -sass`."""
     tool = os.path.join(os.path.dirname(_nvcc.nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
+    text = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
                           timeout=120, check=True).stdout
-    code, on = [], False
-    for line in sass.splitlines():
+    out, name = {}, None
+    for line in text.splitlines():
         if "Function :" in line:
-            on = "fast_score_kernel" in line
+            name = line.split("Function :")[1].strip()
+            out[name] = []
             continue
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
-        if on and m:
-            code.append((int(m.group(1), 16), m.group(2)))
+        if name and m:
+            out[name].append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def function(code: dict, kernel: str) -> list:
+    names = [k for k in code if kernel in k]
+    check(len(names) == 1, f"{kernel}: expected one function in the SASS, found {names}")
+    return code[names[0]]
+
+
+def k1_tensor_instructions(so: str) -> dict:
+    """K1's tensor-core instructions, from its SASS: per instantiation
+    (one per cluster width), the HGMMA ones and how many of those take TF32
+    operands."""
+    code = sass(so)
+    names = [k for k in code if "decoder_fused_kernel" in k]
+    check(len(names) == len(decoder_fused.WIDTHS),
+          f"expected {len(decoder_fused.WIDTHS)} K1 functions in the SASS, found {names}")
+    out = {}
+    for name in names:
+        hgmma = [t for _, t in code[name] if "HGMMA" in t]
+        counts = {"hgmma": len(hgmma), "tf32": sum("TF32" in t for t in hgmma),
+                  "example": hgmma[0] if hgmma else ""}
+        check(counts["tf32"] > 0, f"{name}: no TF32 HGMMA instruction in the SASS: {counts}")
+        out[name] = counts
+    return out
+
+
+def k2_instructions(so: str) -> dict:
+    """Instructions each pixel issues in K2, from the SASS of its library
+    (`cuobjdump -sass`): the section every thread runs after the tile is
+    staged, from the barrier to the end, less the code a forward branch may
+    skip (the run tests a word with < 9 bits set skips, and the corner
+    path), divided by the pixels per thread. A diagnostic of the
+    non-corner pixel's path, not a bound."""
+    code = function(sass(so), "fast_score_maps_kernel")
     start = next(i for i, (_, t) in enumerate(code) if t.startswith("BAR.SYNC"))
     stop = max(i for i, (_, t) in enumerate(code) if t.endswith("EXIT"))
-    counts, skip_to = {"all": 0, "alu": 0}, -1
+    total, skip_to = 0, -1
     for addr, text in code[start:stop]:
         if addr < skip_to:
             continue
-        counts["all"] += 1
-        op = text.split()[1] if text.startswith("@") else text.split()[0]
-        counts["alu"] += op.split(".")[0] in ALU_OPS
+        total += 1
         branch = re.match(r"@!?U?P\d BRA (0x[0-9a-f]+)", text)
         if branch and int(branch.group(1), 16) > addr:
             skip_to = int(branch.group(1), 16)
-    check(counts["all"] > 100, f"K2's SASS parsed to {counts}")
-    return counts
+    per_px = total / K2_PIXELS_PER_THREAD
+    check(per_px > 48, f"K2's SASS parsed to {per_px} instructions per pixel")
+    return {"per_pixel": per_px}
 
 
-def k2_ops_ms(instr: dict, px: int) -> float:
-    """Least time in ms for `px` pixels' instructions: issue or ALU pipe."""
-    return max(instr["all"] * px / ISSUE_PER_S, instr["alu"] * px / ALU_PER_S) * 1e3
+def k2_bound(px: int, corners: int) -> tuple[float, str]:
+    """Least time in ms for K2's work on `px` pixels of which `corners`
+    are low-tier corners: the lane operations over the issue rate, or 8
+    bytes per pixel over HBM."""
+    ops = K2_OPS_PER_PX * px + K2_OPS_PER_CORNER * corners
+    return bound(8.0 * px, ops / ISSUE_PER_S * 1e3)
 
 
-def phase_kernel(dec) -> dict:
+def k1_bound(n: int, param_floats: int) -> tuple[float, str]:
+    """Least time in ms for K1 at n rows: the 3xTF32 products at the TF32
+    tensor-core peak, or reading the inputs and f32 weights once and
+    writing the outputs."""
+    nbytes = 4.0 * (n * 67 * 2 + n + param_floats)
+    return bound(nbytes, K1_TF32_PRODUCTS * K1_OPS_PER_ROW * n / TF32_OPS_PER_S * 1e3)
+
+
+def k1_l2_bytes(n: int) -> float:
+    """Bytes of packed weights K1 streams from L2 at n rows, computed from
+    the design (not measured): the CTAs of every 64-row tile read the whole
+    packed buffer once between them, at any cluster width."""
+    return -(-n // K1_ROWS_PER_BLOCK) * 4.0 * decoder_fused.packed_floats()
+
+
+def phase_kernel(dec, so: str, name: str) -> dict:
     w, b = list(dec.weights), list(dec.biases)
     rng = np.random.default_rng(1)
     max_err = 0.0
-    for n in (7, 300, 2048, 8192):
+    for n in (1, 7, 63, 64, 65, 300, 2048, 4000, 8192):
         x = torch.from_numpy((rng.normal(size=(n, 67)) * 0.3).astype(np.float32)).to(DEV)
-        sdf, grad = decoder_fused.sdf_and_input_grad(w, b, x)
-        torch.cuda.synchronize()
         sdf_p, grad_p = decoder_fused.sdf_and_input_grad_plain(w, b, x)
-        sdf_err = float((sdf - sdf_p).abs().max())
-        row_err = (grad - grad_p).abs().amax(dim=1)
-        p99 = float(torch.quantile(row_err, 0.99))
-        outliers = int((row_err > 1e-4).sum())
-        max_err = max(max_err, sdf_err, float(row_err.max()))
-        print(f"[3] K1 vs plain N={n}: sdf max err {sdf_err:.3e}, grad max err "
-              f"{float(row_err.max()):.3e}, grad p99 err {p99:.3e}, rows > 1e-4: {outliers}")
-        check(bool(torch.isfinite(sdf).all() and torch.isfinite(grad).all()), f"non-finite K1 output at N={n}")
-        check(sdf_err <= 1e-5, f"K1 sdf error {sdf_err} > 1e-5 at N={n}")
-        check(p99 < 1e-4, f"K1 grad p99 error {p99} >= 1e-4 at N={n}")
-        check(outliers <= max(3, n // 1000), f"{outliers} K1 grad outliers at N={n}")
+        errs = []
+        for cw in decoder_fused.WIDTHS:
+            sdf, grad = decoder_fused.sdf_and_input_grad(w, b, x, cluster=cw)
+            torch.cuda.synchronize()
+            sdf_err = float((sdf - sdf_p).abs().max())
+            row_err = (grad - grad_p).abs().amax(dim=1)
+            p99 = float(torch.quantile(row_err, 0.99))
+            outliers = int((row_err > 1e-4).sum())
+            max_err = max(max_err, sdf_err, float(row_err.max()))
+            errs.append(f"{cw}: {sdf_err:.3e} / {float(row_err.max()):.3e} / {p99:.3e} / {outliers}")
+            where = f"N={n}, {cw} CTAs per tile"
+            check(bool(torch.isfinite(sdf).all() and torch.isfinite(grad).all()), f"non-finite K1 output at {where}")
+            check(sdf_err <= 1e-5, f"K1 sdf error {sdf_err} > 1e-5 at {where}")
+            check(p99 < 1e-4, f"K1 grad p99 error {p99} >= 1e-4 at {where}")
+            check(outliers <= max(3, n // 1000), f"{outliers} K1 grad outliers at {where}")
+        print(f"[3] K1 vs plain N={n}, by CTAs per tile (sdf max err / grad max err / grad p99 err "
+              f"/ rows > 1e-4): {'; '.join(errs)}")
+    tc = k1_tensor_instructions(so)
+    for fn_name, c in tc.items():
+        print(f"[3] K1's SASS, {fn_name}: {c['hgmma']} HGMMA instructions, {c['tf32']} of them TF32 "
+              f"(e.g. `{c['example']}`)")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     times = {}
     for n in (2048, 8192):
         x = torch.from_numpy((rng.normal(size=(n, 67)) * 0.3).astype(np.float32)).to(DEV)
-        runs = {"plain": [], "kernel": []}
-        for name in ("plain", "kernel", "kernel", "plain"):
-            fn = decoder_fused.sdf_and_input_grad if name == "kernel" else decoder_fused.sdf_and_input_grad_plain
-            runs[name].append(cuda_ms(lambda: fn(w, b, x), 20))
-        times[n] = {k: float(np.mean(v)) for k, v in runs.items()}
-        print(f"[3] K1 time N={n}: kernel {times[n]['kernel']:.4f} ms, plain "
-              f"{times[n]['plain']:.4f} ms (CUDA events, 20 launches, mean of 2 turns)")
-    return {"max_abs_err": max_err, "times": times}
+        tiles = -(-n // K1_ROWS_PER_BLOCK)
+        chosen = decoder_fused.width(DEV, n)
+        order = ["plain", *decoder_fused.WIDTHS]
+        runs = {path: [] for path in order}
+        for path in order + order[::-1]:
+            if path == "plain":
+                fn = lambda: decoder_fused.sdf_and_input_grad_plain(w, b, x)  # noqa: E731
+            else:
+                fn = lambda: decoder_fused.sdf_and_input_grad(w, b, x, cluster=path)  # noqa: E731
+            runs[path].append(cuda_ms(fn, 20))
+        t = {path: float(np.mean(v)) for path, v in runs.items()}
+        t["kernel"] = t[chosen]
+        t["width"] = chosen
+        t["device"] = kernel_device_ms(lambda: decoder_fused.sdf_and_input_grad(w, b, x),
+                                       20, "decoder_fused_kernel")
+        t["bound"], t["bound_by"] = k1_bound(n, decoder_fused.packed_floats())
+        old_bound = K1_OPS_PER_ROW * n / FP32_OPS_PER_S * 1e3
+        for cw in decoder_fused.WIDTHS:
+            fit = decoder_fused.clusters(DEV, cw)
+            print(f"[3] K1 N={n}, {cw} CTAs per tile: {t[cw]:.4f} ms ({runs[cw][0]:.4f}, "
+                  f"{runs[cw][1]:.4f}); {tiles * cw} CTAs, {fit} clusters of {cw} run at once: "
+                  f"{-(-tiles // fit)} wave(s), SM fill {min(tiles, fit) * cw / sms:.3f} of "
+                  f"{sms} SMs in the first")
+        times[n] = t
+        print(f"[3] K1 time N={n}: kernel {t['kernel']:.4f} ms at the default choice of {chosen} CTAs per "
+              f"tile (device {t['device']:.4f}), plain {t['plain']:.4f} ms ({runs['plain'][0]:.4f}, "
+              f"{runs['plain'][1]:.4f}) (CUDA events, 20 launches, mean of 2 turns) on {name}; bound "
+              f"{t['bound']:.4f} ms ({t['bound_by']}: 3xTF32 at 495 TFLOP/s; the f32 CUDA-core "
+              f"figure was {old_bound:.4f}); weights streamed from L2 {k1_l2_bytes(n) / 1e9:.3f} GB "
+              f"at every width (computed, not measured); the CUDA-core design took "
+              f"{PREVIOUS['k1_ms'][n]:.4f} ms")
+    return {"max_abs_err": max_err, "times": times, "tensor": tc}
 
 
 def write_experiment(path: str, params_np: dict):
@@ -349,13 +453,15 @@ def phase_gn(name: str) -> dict:
 
 
 def k2_levels(left: np.ndarray, right: np.ndarray, params) -> list:
-    """The 16 level images of one stereo frame's two pyramids, on the card."""
-    out = []
+    """The 16 (h, w) level maps of one stereo frame's two pyramids on the
+    card, in the order `orb.extract_stereo` gives them to K2: by level, the
+    left and right image of a level adjacent."""
+    pyramids = []
     for img in (left, right):
         t = torch.from_numpy(img).to(DEV).float()
-        for level, (h, w) in enumerate(orb.level_shapes(params, *img.shape)):
-            out.append((t if level == 0 else orb.resize(t, h, w)).unsqueeze(0).contiguous())
-    return out
+        pyramids.append([t if level == 0 else orb.resize(t, h, w).contiguous()
+                         for level, (h, w) in enumerate(orb.level_shapes(params, *img.shape))])
+    return [pyr[level] for level in range(len(pyramids[0])) for pyr in pyramids]
 
 
 def phase_fast(frame0, params, so: str, name: str) -> dict:
@@ -363,10 +469,10 @@ def phase_fast(frame0, params, so: str, name: str) -> dict:
     max_err = 0.0
     shapes = orb.level_shapes(params, 376, 1241) + [(49, 130)]
     for i, (h, w) in enumerate(shapes):
-        x = torch.from_numpy(blob_images(1, h, w, seed=i)).to(DEV)
-        out = fast_score.fast_score_map(x, t_lo, t_hi, orb.BOOST)
+        x = torch.from_numpy(blob_images(1, h, w, seed=i)[0]).to(DEV)
+        (out,) = fast_score.fast_score_maps([x], t_lo, t_hi, orb.BOOST)
         torch.cuda.synchronize()
-        ref = fast_score.fast_score_map_plain(x, t_lo, t_hi, orb.BOOST)
+        (ref,) = fast_score.fast_score_maps_plain([x], t_lo, t_hi, orb.BOOST)
         err = float((out - ref).abs().max())
         max_err = max(max_err, err)
         check(bool(torch.equal(out, ref)), f"K2 differs from its plain version at {h}x{w}: {err}")
@@ -375,52 +481,65 @@ def phase_fast(frame0, params, so: str, name: str) -> dict:
           f"({shapes[0][0]}x{shapes[0][1]} ... {shapes[-2][0]}x{shapes[-2][1]}, 49x130): exact")
 
     levels = k2_levels(*frame0, params)
-    for x in levels:
-        out = fast_score.fast_score_map(x, t_lo, t_hi, orb.BOOST)
-        ref = fast_score.fast_score_map_plain(x, t_lo, t_hi, orb.BOOST)
-        check(bool(torch.equal(out > 0, ref > 0) and torch.equal(out >= orb.BOOST, ref >= orb.BOOST)),
-              f"K2 corner masks differ on a {tuple(x.shape[1:])} level")
-        rel = float(((out - ref).abs() / ref.abs().clamp(min=1.0)).max())
+    before = fast_score.fast_score_maps.launches
+    outs = fast_score.fast_score_maps(levels, t_lo, t_hi, orb.BOOST)
+    torch.cuda.synchronize()
+    check(fast_score.fast_score_maps.launches == before + 1, "K2 took more than one launch for a frame")
+    refs = fast_score.fast_score_maps_plain(levels, t_lo, t_hi, orb.BOOST)
+    for x, out, ref in zip(levels, outs, refs):
         max_err = max(max_err, float((out - ref).abs().max()))
-        check(rel <= 1e-6, f"K2 relative error {rel} on a {tuple(x.shape[1:])} level")
-    print(f"[6] K2 vs plain on the 16 level images of a KITTI-shaped stereo frame "
-          f"(resized levels, non-integer): equal corner masks, max abs err {max_err:.3e}")
+        check(bool(torch.equal(out, ref)), f"K2 differs from its plain version on a {tuple(x.shape)} level")
+    print(f"[6] K2 vs plain on the 16 level maps of a KITTI-shaped stereo frame (resized levels, "
+          f"non-integer), one launch: exact")
 
-    full = levels[0]
+    full = levels[:1]
     per_launch = {"plain": [], "kernel": []}
     per_frame = {"plain": [], "kernel": []}
     for path in ("plain", "kernel", "kernel", "plain"):
-        fn = fast_score.fast_score_map if path == "kernel" else fast_score.fast_score_map_plain
+        fn = fast_score.fast_score_maps if path == "kernel" else fast_score.fast_score_maps_plain
         per_launch[path].append(cuda_ms(lambda: fn(full, t_lo, t_hi, orb.BOOST), 50))
-        per_frame[path].append(cuda_ms(lambda: [fn(x, t_lo, t_hi, orb.BOOST) for x in levels], 20))
+        per_frame[path].append(cuda_ms(lambda: fn(levels, t_lo, t_hi, orb.BOOST), 50))
     ms = {k: float(np.mean(v)) for k, v in per_launch.items()}
     frame_ms = {k: float(np.mean(v)) for k, v in per_frame.items()}
-    dev_launch = kernel_device_ms(lambda: fast_score.fast_score_map(full, t_lo, t_hi, orb.BOOST),
-                                  50, "fast_score_kernel")
-    dev_frame = kernel_device_ms(
-        lambda: [fast_score.fast_score_map(x, t_lo, t_hi, orb.BOOST) for x in levels],
-        20, "fast_score_kernel")
-    px = full.numel()
+    # the wrapper's own host time per frame: calls queued without a sync
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        fast_score.fast_score_maps(levels, t_lo, t_hi, orb.BOOST)
+    host_frame_ms = (time.perf_counter() - t0) / 50 * 1e3
+    torch.cuda.synchronize()
+    dev_launch = kernel_device_ms(lambda: fast_score.fast_score_maps(full, t_lo, t_hi, orb.BOOST),
+                                  50, "fast_score_maps_kernel")
+    dev_frame = kernel_device_ms(lambda: fast_score.fast_score_maps(levels, t_lo, t_hi, orb.BOOST),
+                                 50, "fast_score_maps_kernel")
+    px = full[0].numel()
     px_frame = sum(x.numel() for x in levels)
     instr = k2_instructions(so)
-    b_launch, by_launch = bound(8.0 * px, k2_ops_ms(instr, px))
-    b_frame, by_frame = bound(8.0 * px_frame, k2_ops_ms(instr, px_frame))
-    print(f"[6] K2's SASS: {instr['all']} instructions per pixel, {instr['alu']} of them on the "
-          f"ALU pipe (a lower bound: without the halo staging loop and the skippable run tests)")
+    # low-tier corners (a nonzero score): where the work beyond the
+    # every-pixel part is needed
+    corners = int((refs[0] != 0).sum())
+    corners_frame = sum(int((r != 0).sum()) for r in refs)
+    b_launch, by_launch = k2_bound(px, corners)
+    b_frame, by_frame = k2_bound(px_frame, corners_frame)
+    print(f"[6] K2's SASS: {instr['per_pixel']:.1f} instructions per pixel on a non-corner "
+          f"pixel's path (a diagnostic; the one-launch-per-map kernel: 393)")
     print(f"[6] K2 time per launch at 376x1241 ({px} px): kernel {ms['kernel']:.5f} ms "
-          f"({per_launch['kernel'][0]:.5f}, {per_launch['kernel'][1]:.5f}), plain "
-          f"{ms['plain']:.5f} ms ({per_launch['plain'][0]:.5f}, {per_launch['plain'][1]:.5f}), "
-          f"bound {b_launch:.5f} ms ({by_launch}) on {name}")
-    print(f"[6] K2 time per stereo frame (16 level maps, {px_frame} px): kernel "
-          f"{frame_ms['kernel']:.5f} ms ({per_frame['kernel'][0]:.5f}, {per_frame['kernel'][1]:.5f}), "
-          f"plain {frame_ms['plain']:.5f} ms ({per_frame['plain'][0]:.5f}, {per_frame['plain'][1]:.5f}), "
-          f"bound {b_frame:.5f} ms ({by_frame}) on {name}")
-    print(f"[6] K2 device time (torch.profiler, kernel only): {dev_launch:.5f} ms per launch at "
-          f"376x1241, {dev_frame:.5f} ms per stereo frame; the CUDA-event times above include "
-          f"the host's launch gaps")
+          f"({per_launch['kernel'][0]:.5f}, {per_launch['kernel'][1]:.5f}; device {dev_launch:.5f}), "
+          f"plain {ms['plain']:.5f} ms ({per_launch['plain'][0]:.5f}, {per_launch['plain'][1]:.5f}), "
+          f"bound {b_launch:.5f} ms ({by_launch}: {K2_OPS_PER_PX} lane operations per pixel, "
+          f"{K2_OPS_PER_CORNER} more at each of its {corners} low-tier corners) on {name}; the one-launch-per-map design took {PREVIOUS['k2_launch_ms']:.5f} ms (device "
+          f"{PREVIOUS['k2_launch_device_ms']:.5f})")
+    print(f"[6] K2 time per stereo frame (16 level maps, {px_frame} px, one launch): kernel "
+          f"{frame_ms['kernel']:.5f} ms ({per_frame['kernel'][0]:.5f}, {per_frame['kernel'][1]:.5f}; "
+          f"device {dev_frame:.5f}), plain {frame_ms['plain']:.5f} ms ({per_frame['plain'][0]:.5f}, "
+          f"{per_frame['plain'][1]:.5f}), host time of the wrapper {host_frame_ms:.5f} ms (50 calls queued, "
+          f"perf_counter), bound {b_frame:.5f} ms ({by_frame}; {corners_frame} low-tier "
+          f"corners, {corners_frame / px_frame:.4f} of the pixels) on {name}; the previous "
+          f"design's 16 launches took {PREVIOUS['k2_frame_ms']:.5f} ms (device {PREVIOUS['k2_frame_device_ms']:.5f})")
     return {"max_abs_err": max_err, "ms": ms, "frame_ms": frame_ms,
-            "device_ms": dev_launch, "device_frame_ms": dev_frame,
-            "bound_ms": b_launch, "bound_by": by_launch}
+            "device_ms": dev_launch, "device_frame_ms": dev_frame, "host_frame_ms": host_frame_ms,
+            "bound_ms": b_launch, "bound_by": by_launch, "frame_bound_ms": b_frame,
+            "instructions_per_pixel": instr["per_pixel"]}
 
 
 def run_tracker(system_cfg, images, pipelined: bool) -> tuple:
@@ -453,10 +572,10 @@ def phase_tracking(system_cfg, images, poses, name: str) -> dict:
     for pipelined in (False, True):
         form = "pipelined" if pipelined else "non-pipelined"
         # the main path: counts from 0 just before, read just after
-        fast_score.fast_score_map.launches = 0
+        fast_score.fast_score_maps.launches = 0
         decoder_fused.sdf_and_input_grad.launches = 0
         tr, walls, steady = run_tracker(system_cfg, images, pipelined)
-        launches = fast_score.fast_score_map.launches
+        launches = fast_score.fast_score_maps.launches
         check(decoder_fused.sdf_and_input_grad.launches == 0, "K1 ran on the tracking path")
         out["launches"] += launches
         lost = sum(1 for _, _, l in tr.trajectory if l)
@@ -468,10 +587,10 @@ def phase_tracking(system_cfg, images, poses, name: str) -> dict:
         check(len(tr.trajectory) == n and lost == 0, f"{form}: {lost} lost frames")
         check(tr.state == tracking.State.OK, f"{form}: ends in {tr.state}")
         check(ate < 0.03 * travel, f"{form}: ATE {ate} m >= 3% of {travel} m")
-        check(launches == 16 * (n + tr.n_redone),
-              f"{form}: K2 launched {launches} times, expected 16 x ({n} + {tr.n_redone})")
+        check(launches == n + tr.n_redone,
+              f"{form}: K2 launched {launches} times, expected one per frame: {n} + {tr.n_redone}")
         # the same drive with FAST bound to K2's plain version
-        with mock.patch.object(fast_score, "fast_score_map", fast_score.fast_score_map_plain):
+        with mock.patch.object(fast_score, "fast_score_maps", fast_score.fast_score_maps_plain):
             ref, _, _ = run_tracker(system_cfg, images, pipelined)
         dT = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(tr.trajectory, ref.trajectory))
         check(len(ref.trajectory) == n and dT <= 1e-4, f"{form}: K2 and plain paths differ by {dT}")
@@ -544,7 +663,7 @@ def main():
           f"-> {', '.join(os.path.relpath(so) for so in libs)}")
 
     dec = deepsdf.params_from_jax(canonical_params_np(seed=1), device=DEV)
-    k1 = phase_kernel(dec)
+    k1 = phase_kernel(dec, libs[0], name)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_slice(tmp)
     ms = phase_gn(name)
@@ -562,13 +681,19 @@ def main():
     phase_profile(system_cfg, images, trk["pipelined"]["wall_ms"])
 
     print(name)
-    k1_bound, k1_by = bound(4.0 * (8192 * 67 * 2 + 8192 + sum(w.numel() + b.numel() for w, b in zip(dec.weights, dec.biases))),
-                            K1_OPS_PER_ROW * 8192 / FP32_OPS_PER_S * 1e3)
     kernels = [{
         "name": "decoder_fused", "route": "cuda", "source": SRC, "replaces": REPLACES,
         "launches": launches, "max_abs_err": k1["max_abs_err"],
         "ms": k1["times"][8192]["kernel"], "plain_ms": k1["times"][8192]["plain"],
-        "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
+        "bound_ms": k1["times"][8192]["bound"], "bound_by": k1["times"][8192]["bound_by"],
+        "library_ms": None,
+        "device_ms": k1["times"][8192]["device"], "cluster": k1["times"][8192]["width"],
+        "ms_2048": k1["times"][2048]["kernel"], "device_ms_2048": k1["times"][2048]["device"],
+        "plain_ms_2048": k1["times"][2048]["plain"], "bound_ms_2048": k1["times"][2048]["bound"],
+        "cluster_2048": k1["times"][2048]["width"],
+        "ms_by_cluster": {n: {cw: k1["times"][n][cw] for cw in decoder_fused.WIDTHS}
+                          for n in (2048, 8192)},
+        "tf32_hgmma_instructions": sum(c["tf32"] for c in k1["tensor"].values()),
         "gn_ms_per_object": ms["kernel"], "gn_plain_ms_per_object": ms["plain"],
     }, {
         "name": "fast_score", "route": "cuda", "source": K2_SRC, "replaces": K2_REPLACES,
@@ -576,7 +701,10 @@ def main():
         "ms": k2["ms"]["kernel"], "plain_ms": k2["ms"]["plain"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
         "device_ms": k2["device_ms"], "frame_ms": k2["frame_ms"]["kernel"],
-        "frame_device_ms": k2["device_frame_ms"], "frame_plain_ms": k2["frame_ms"]["plain"],
+        "frame_device_ms": k2["device_frame_ms"], "frame_host_ms": k2["host_frame_ms"],
+        "frame_plain_ms": k2["frame_ms"]["plain"],
+        "frame_bound_ms": k2["frame_bound_ms"],
+        "instructions_per_pixel": k2["instructions_per_pixel"],
         "tracking_ms_per_frame": {f: trk[f]["median_ms"] for f in ("non-pipelined", "pipelined")},
     }]
     print(json.dumps({"kernels": kernels}))

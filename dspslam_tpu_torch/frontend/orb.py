@@ -8,8 +8,10 @@ blur -> steered BRIEF) with fixed shapes and validity masks:
   weights `jax.image.resize(..., "bilinear")` uses, built on the host once
   per level shape and applied as two f32 matrix products;
 * FAST runs either as kernel K2 (`kernels/fast_score.py`: zero padding,
-  sum |d| response, two tiers in one pass) or as the arc-min "V" response
-  with wraparound (`fast_score_map`); `ORBParams.fast_backend` picks;
+  sum |d| response, two tiers in one pass, every level of both pyramids of
+  a stereo pair in one launch, `extract_stereo`) or as the arc-min "V"
+  response with wraparound (`fast_score_map`); `ORBParams.fast_backend`
+  picks;
 * non-max suppression is a 3x3 local-maximum test, then top-k per grid
   cell and a global top-k, with ties broken toward the lower index as
   `jax.lax.top_k` breaks them (stable descending sorts);
@@ -342,23 +344,29 @@ def brief_pattern_tensor(params: ORBParams, device: torch.device) -> torch.Tenso
     )
 
 
+def two_tier_scores(level_imgs: list[torch.Tensor], params: ORBParams) -> list[torch.Tensor]:
+    """Two-tier score maps of f32 (h, w) level images: K2 (one launch for
+    up to 16 maps, BOOST added at t_hi corners) or the arc-min path, whose
+    score V satisfies "corner at t iff V > t", so its high tier is
+    {V > fast_threshold}, boosted by a constant."""
+    if _use_k2(params.fast_backend, level_imgs[0].device):
+        return fast_score.fast_score_maps(
+            [img.contiguous() for img in level_imgs], params.min_threshold,
+            params.fast_threshold, BOOST,
+        )
+    out = []
+    for img in level_imgs:
+        score = fast_score_map(img, params.min_threshold)
+        out.append(torch.where(score > params.fast_threshold, score + BOOST, score))
+    return out
+
+
 def extract_level(level_img: torch.Tensor, level: int, params: ORBParams,
-                  pattern: torch.Tensor) -> dict:
-    """Detection, orientation and BRIEF on one pyramid level (f32 (h, w)).
-    Coordinates come back in level-0 pixels."""
+                  pattern: torch.Tensor, score: torch.Tensor) -> dict:
+    """Detection, orientation and BRIEF on one pyramid level (f32 (h, w))
+    from its two-tier score map. Coordinates come back in level-0 pixels."""
     budget = params.features_per_level()[level]
     scale = params.level_scales()[level]
-    if _use_k2(params.fast_backend, level_img.device):
-        # one pass gives both tiers: K2 adds BOOST at t_hi corners
-        score = fast_score.fast_score_map(
-            level_img.unsqueeze(0).contiguous(), params.min_threshold,
-            params.fast_threshold, BOOST,
-        )[0]
-    else:
-        # the arc-min score V satisfies "corner at t iff V > t", so the
-        # high tier is {V > fast_threshold}, boosted by a constant
-        score = fast_score_map(level_img, params.min_threshold)
-        score = torch.where(score > params.fast_threshold, score + BOOST, score)
     xy, resp, valid = select_keypoints(score, budget, params.cell_size, params.per_cell)
     ang = orientations(level_img, xy)
     desc = brief_descriptors(gaussian_blur7(level_img), xy, ang, pattern)
@@ -373,17 +381,42 @@ def extract_level(level_img: torch.Tensor, level: int, params: ORBParams,
     }
 
 
+def _extract_pyramids(images: list[torch.Tensor], params: ORBParams) -> list[dict]:
+    """Features of equally shaped images: every image's pyramid is built
+    first (each level resized from level 0), then K2 scores all levels of
+    all images in one launch (levels in order, the images of a level
+    adjacent), then each level is detected and described."""
+    _check_modes(params)
+    imgs = [img.to(torch.float32) for img in images]
+    pattern = brief_pattern_tensor(params, imgs[0].device)
+    shapes = level_shapes(params, *imgs[0].shape)
+    pyramids = [
+        [img if level == 0 else resize(img, h, w) for level, (h, w) in enumerate(shapes)]
+        for img in imgs
+    ]
+    flat = two_tier_scores([pyr[level] for level in range(len(shapes)) for pyr in pyramids], params)
+    scores = [flat[i::len(imgs)] for i in range(len(imgs))]
+    feats = []
+    for pyr, score in zip(pyramids, scores):
+        outs = [extract_level(pyr[level], level, params, pattern, score[level])
+                for level in range(len(shapes))]
+        feats.append({k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]})
+    return feats
+
+
 def extract(img: torch.Tensor, params: ORBParams = ORBParams()) -> dict:
     """Multi-scale ORB extraction on a (H, W) image in [0, 255] (uint8 or
     float). Returns a dict of padded tensors over N = sum of the level
     budgets: xy (N, 2) level-0 pixels, response (N,), angle (N,),
     level (N,) int32, sigma2 (N,), desc (N, 8) int32, valid (N,)."""
-    _check_modes(params)
-    img = img.to(torch.float32)
-    pattern = brief_pattern_tensor(params, img.device)
-    H0, W0 = img.shape
-    outs = []
-    for level, (h, w) in enumerate(level_shapes(params, H0, W0)):
-        level_img = img if level == 0 else resize(img, h, w)
-        outs.append(extract_level(level_img, level, params, pattern))
-    return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
+    return _extract_pyramids([img], params)[0]
+
+
+def extract_stereo(img_l: torch.Tensor, img_r: torch.Tensor,
+                   params: ORBParams = ORBParams()) -> tuple[dict, dict]:
+    """`extract` of both images of a stereo pair (same shape), with one K2
+    launch for the two pyramids; returns what two `extract` calls return."""
+    if img_l.shape != img_r.shape:
+        raise ValueError(f"stereo images differ in shape: {tuple(img_l.shape)} {tuple(img_r.shape)}")
+    feats_l, feats_r = _extract_pyramids([img_l, img_r], params)
+    return feats_l, feats_r

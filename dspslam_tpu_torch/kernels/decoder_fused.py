@@ -13,8 +13,11 @@ tests and `chip_smoke.py` hold the kernel against.
 
 The kernel source is compiled with `nvcc` for `sm_90a` on first use by
 `kernels/_nvcc.py` and bound with ctypes. Weights are given in the
-`torch.nn.Linear` layout (out, in); the wrapper packs the forward and
-transposed copies into one device buffer once per parameter version.
+`torch.nn.Linear` layout (out, in); the wrapper packs them once per
+parameter version (`pack_params`): the forward (out, in) and backward
+(in, out) copies, each split into TF32 hi and lo parts for the kernel's
+3xTF32 tensor-core products, in the order the kernel's shared-memory
+stages take them.
 """
 
 from __future__ import annotations
@@ -49,38 +52,80 @@ def _library() -> ctypes.CDLL:
         lib = _nvcc.load("decoder_fused")
         lib.dsp_decoder_fused.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.dsp_decoder_fused.restype = ctypes.c_int
         lib.dsp_decoder_fused_param_floats.restype = ctypes.c_longlong
+        lib.dsp_decoder_fused_clusters.argtypes = [ctypes.c_int]
+        lib.dsp_decoder_fused_clusters.restype = ctypes.c_int
+        lib.dsp_decoder_fused_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.dsp_decoder_fused_scratch_floats.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
 
-def _pad_to(t: torch.Tensor, multiple: int) -> torch.Tensor:
-    """Zero-pad the last dimension to a multiple of `multiple`."""
-    return torch.nn.functional.pad(t, (0, (-t.shape[-1]) % multiple))
+IN_PAD = 72  # the input width padded to a multiple of 8
+HALF = 256   # columns per block of a 512-wide product in the packed buffer
+ROWS = 64    # rows per tile: one wgmma M
+
+
+def passes() -> list[tuple[int, bool, int, int]]:
+    """The kernel's 16 products in launch order: (layer, forward, N, K),
+    each B operand an (N, K) matrix read K-major. The forward takes w_l
+    (out, in); the backward w_l^T (in, out). Layer 3's 445 outputs are
+    padded to 512, the 67 inputs to 72 (csrc/decoder_fused.cu,
+    pass_k8 / pass_n). A 512-column product streams as two halves of 256
+    columns."""
+    fwd = [(l, True, HID, IN_PAD if l == 0 else HID) for l in range(8)]
+    bwd = [(l, False, IN_PAD if l == 0 else HID, 448 if l == 3 else HID)
+           for l in reversed(range(8))]
+    return fwd + bwd
+
+
+def packed_floats() -> int:
+    """Floats in the packed buffer: every product's hi and lo (2 N K), the
+    eight padded biases, w8 and b8 padded to 4."""
+    return sum(2 * n * k for _, _, n, k in passes()) + 8 * HID + HID + 4
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value, ties away from zero (PTX
+    cvt.rna.tf32.f32): the low 13 mantissa bits come out zero."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _stage_order(m: torch.Tensor) -> torch.Tensor:
+    """(N, K) -> for each block of 8 k, the hi part then the lo part, each as
+    N / 8 groups of [2 k-halves][8 rows][4 k], the no-swizzle K-major layout
+    the kernel's wgmma descriptors read."""
+    n, k = m.shape
+    hi = tf32_round(m)
+    lo = tf32_round(m - hi)
+
+    def tiles(a):
+        return a.reshape(n // 8, 8, k // 8, 2, 4).permute(2, 0, 3, 1, 4).reshape(k // 8, 8 * n)
+
+    return torch.stack([tiles(hi), tiles(lo)], dim=1).reshape(-1)
+
+
+def _pad2(m: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    return torch.nn.functional.pad(m, (0, cols - m.shape[1], 0, rows - m.shape[0]))
 
 
 def pack_params(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor]):
-    """One contiguous f32 buffer in the kernel's operand order: forward
-    weights (in, out) with layer 4 split into w4h / w4x, then the transposed
-    copies (out, in) the backward streams (see csrc/decoder_fused.cu).
-    Matrix rows are zero-padded to a multiple of 32 floats and vectors to a
-    multiple of 4, so every operand starts 16-byte aligned."""
+    """One contiguous f32 buffer in the kernel's operand order: the 16
+    products of `passes()`, each in halves of 256 columns in stage order,
+    then b0..b7 (zero-padded to 512), w8 and b8 (padded to 4)."""
     w = [t.detach().float() for t in weights]
     b = [t.detach().float().reshape(-1) for t in biases]
-    fwd = [x.t() for x in w]
-    mats = [
-        fwd[0], b[0], fwd[1], b[1], fwd[2], b[2], fwd[3], b[3],
-        fwd[4][:NARROW], fwd[4][NARROW:], b[4],
-        fwd[5], b[5], fwd[6], b[6], fwd[7], b[7], w[8].reshape(-1), b[8],
-        w[0], w[1], w[2], w[3], w[4][:, :NARROW], w[4][:, NARROW:],
-        w[5], w[6], w[7],
-    ]
-    return torch.cat(
-        [_pad_to(m, 32 if m.dim() == 2 else 4).reshape(-1) for m in mats]
-    )
+    parts = []
+    for l, forward, n, k in passes():
+        m = _pad2(w[l] if forward else w[l].t(), n, k)
+        parts += [_stage_order(half) for half in m.split(HALF)]
+    parts += [torch.nn.functional.pad(b[l], (0, HID - b[l].numel())) for l in range(8)]
+    parts += [w[8].reshape(-1), torch.nn.functional.pad(b[8], (0, 3))]
+    return torch.cat(parts)
 
 
 def _check_canonical(weights, biases):
@@ -111,9 +156,35 @@ def _packed(weights, biases) -> torch.Tensor:
     return packed
 
 
-def sdf_and_input_grad(weights, biases, inputs: torch.Tensor):
+WIDTHS = (1, 2)  # CTAs per 64-row tile (a cluster) that the kernel supports
+_clusters: dict = {}
+
+
+def clusters(device: torch.device, cw: int) -> int:
+    """How many clusters of `cw` CTAs, i.e. 64-row tiles, the card runs at
+    once (the CUDA occupancy query)."""
+    key = (device.index, cw)
+    if key not in _clusters:
+        with torch.cuda.device(device):
+            _clusters[key] = _library().dsp_decoder_fused_clusters(cw)
+        if _clusters[key] < 1:
+            raise RuntimeError(f"decoder_fused: no cluster of {cw} CTAs fits on {device}")
+    return _clusters[key]
+
+
+def width(device: torch.device, n: int) -> int:
+    """The CTAs per 64-row tile that n rows take by default: the widest
+    cluster whose tiles the card runs in one wave, else 1."""
+    tiles = -(-n // ROWS)
+    return next((cw for cw in sorted(WIDTHS, reverse=True)
+                 if cw == 1 or tiles <= clusters(device, cw)), 1)
+
+
+def sdf_and_input_grad(weights, biases, inputs: torch.Tensor, cluster: int | None = None):
     """(N, 67) -> (sdf (N,), d sdf / d input (N, 67)) for the canonical
-    decoder. CPU tensors take the plain version; CUDA tensors launch K1."""
+    decoder. CPU tensors take the plain version; CUDA tensors launch K1,
+    with `cluster` CTAs per 64-row tile (one of WIDTHS; by default the
+    kernel's choice, `width`)."""
     if inputs.device.type == "cpu":
         return sdf_and_input_grad_plain(weights, biases, inputs)
     if inputs.device.type != "cuda":
@@ -131,6 +202,8 @@ def sdf_and_input_grad(weights, biases, inputs: torch.Tensor):
             raise ValueError(
                 "decoder_fused: weights must be float32 on the inputs' device"
             )
+    if cluster is not None and cluster not in WIDTHS:
+        raise ValueError(f"decoder_fused: cluster must be one of {WIDTHS}, got {cluster}")
     n = inputs.shape[0]
     sdf = torch.empty((n,), device=inputs.device, dtype=torch.float32)
     grad = torch.empty((n, IN_DIM), device=inputs.device, dtype=torch.float32)
@@ -140,9 +213,13 @@ def sdf_and_input_grad(weights, biases, inputs: torch.Tensor):
         packed = _packed(weights, biases)
         if packed.data_ptr() % 16:
             raise RuntimeError("decoder_fused: packed weights are not 16-byte aligned")
-        err = _library().dsp_decoder_fused(
-            inputs.data_ptr(), packed.data_ptr(), sdf.data_ptr(),
-            grad.data_ptr(), n, torch.cuda.current_stream().cuda_stream,
+        lib = _library()
+        cw = cluster or width(inputs.device, n)
+        scratch = torch.empty((lib.dsp_decoder_fused_scratch_floats(n, cw),),
+                              device=inputs.device, dtype=torch.float32)
+        err = lib.dsp_decoder_fused(
+            inputs.data_ptr(), packed.data_ptr(), sdf.data_ptr(), grad.data_ptr(),
+            scratch.data_ptr(), n, cw, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"decoder_fused: kernel launch failed, CUDA error {err}")

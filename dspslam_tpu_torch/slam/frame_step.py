@@ -99,8 +99,7 @@ def _match_stages(orb_params, radii, intrinsics, feats_l, u_right,
 def _two_stage_track(orb_params, radii, img_l, img_r, bf, max_disparity, intrinsics,
                      T_pred, last, local):
     """Shared stereo body: extraction + stereo + motion / local stages."""
-    feats_l = orb.extract(img_l, orb_params)
-    feats_r = orb.extract(img_r, orb_params)
+    feats_l, feats_r = orb.extract_stereo(img_l, img_r, orb_params)
     st = stereo.stereo_match(feats_l, feats_r, img_l, img_r, bf, max_disparity)
     result = _match_stages(
         orb_params, radii, intrinsics, feats_l, st["u_right"], T_pred, *last, *local

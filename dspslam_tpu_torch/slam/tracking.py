@@ -421,8 +421,7 @@ class Tracker:
     def _process_stereo_modular(self, img_l, img_r, timestamp: float) -> Frame:
         jl = self._upload_image(img_l)
         jr = self._upload_image(img_r)
-        feats_l = orb.extract(jl, self.orb_params)
-        feats_r = orb.extract(jr, self.orb_params)
+        feats_l, feats_r = orb.extract_stereo(jl, jr, self.orb_params)
         st = stereo.stereo_match(
             feats_l, feats_r, jl, jr, float(self.cfg.bf),
             float(self.cfg.bf / 0.5),  # max disparity ~ minZ 0.5 m

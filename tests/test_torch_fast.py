@@ -51,17 +51,92 @@ def test_k2_batch_pads_each_image_alone():
 
 
 def test_k2_wrapper_on_cpu_takes_the_plain_version_and_checks_inputs():
-    img = torch.from_numpy(blob_image(30, 50))[None]
-    before = fast_score.fast_score_map.launches
-    out = fast_score.fast_score_map(img, 7.0, 20.0, 1e4)
-    assert fast_score.fast_score_map.launches == before
-    assert torch.equal(out, fast_score.fast_score_map_plain(img, 7.0, 20.0, 1e4))
+    img = torch.from_numpy(blob_image(30, 50))
+    before = fast_score.fast_score_maps.launches
+    (out,) = fast_score.fast_score_maps([img], 7.0, 20.0, 1e4)
+    assert fast_score.fast_score_maps.launches == before
+    assert torch.equal(out, fast_score.fast_score_map_plain(img[None], 7.0, 20.0, 1e4)[0])
     with pytest.raises(ValueError, match="float32"):
-        fast_score.fast_score_map(img.double())
+        fast_score.fast_score_maps([img.double()])
     with pytest.raises(ValueError, match="float32"):
-        fast_score.fast_score_map(img[0])
+        fast_score.fast_score_maps([img[None]])
     with pytest.raises(ValueError, match="contiguous"):
-        fast_score.fast_score_map(img.transpose(1, 2))
+        fast_score.fast_score_maps([img.t()])
+    with pytest.raises(ValueError, match="float32"):
+        fast_score.fast_score_map_plain(img)
+
+
+KITTI_LEVELS = torb.level_shapes(torb.ORBParams(), 376, 1241)
+
+
+def test_multi_map_plain_is_the_plain_version_per_map():
+    """The multi-map entry on CPU tensors: `fast_score_map_plain` of each map,
+    whatever the shapes, in order; no kernel launch."""
+    shapes = [(40, 70), (40, 70), (33, 21), (7, 5), (64, 90)]
+    imgs = [torch.from_numpy(blob_image(h, w, seed=i)) for i, (h, w) in enumerate(shapes)]
+    before = fast_score.fast_score_maps.launches
+    outs = fast_score.fast_score_maps(imgs, 7.0, 20.0, 1e4)
+    assert fast_score.fast_score_maps.launches == before
+    assert len(outs) == len(imgs)
+    for img, out in zip(imgs, outs):
+        assert torch.equal(out, fast_score.fast_score_map_plain(img[None], 7.0, 20.0, 1e4)[0])
+    assert sum(int((o >= 1e4).sum()) for o in outs) > 10
+
+
+def kernel_tiles(table, n_tiles):
+    """The kernel's block -> (map, pixels) mapping, mirrored: a binary search
+    over the first-tile prefix, then the tile's 32 x 16 pixels clipped to
+    the map (csrc/fast_score.cu)."""
+    count = len(table)
+    for block in range(n_tiles):
+        m, step = 0, fast_score.MAX_MAPS // 2
+        while step:
+            if m + step < count and block >= table[m + step][4]:
+                m += step
+            step //= 2
+        off, h, w, tiles_x, first = table[m]
+        t = block - first
+        by, bx = divmod(t, tiles_x)
+        ys = np.arange(by * fast_score.TILE_H, min((by + 1) * fast_score.TILE_H, h))
+        xs = np.arange(bx * fast_score.TILE_W, min((bx + 1) * fast_score.TILE_W, w))
+        yield m, off + (ys[:, None] * w + xs[None, :]).ravel()
+
+
+@pytest.mark.parametrize("shapes", [
+    [s for s in KITTI_LEVELS for _ in (0, 1)],             # a KITTI stereo frame
+    [(1, 1), (17, 33), (16, 32), (15, 31), (49, 130), (3, 200), (200, 3)],
+], ids=["kitti_16_levels", "odd_shapes"])
+def test_tile_table_covers_every_pixel_of_every_map_once(shapes):
+    table = fast_score.tile_table(shapes)
+    assert [(h, w) for _, h, w, _, _ in table] == shapes
+    off, h, w, tiles_x, first = table[-1]
+    n_tiles = first + tiles_x * -(-h // fast_score.TILE_H)
+    total = sum(h * w for h, w in shapes)
+    hits = np.zeros(total, np.int64)
+    for m, pix in kernel_tiles(table, n_tiles):
+        o, h, w = table[m][:3]
+        assert pix.size and pix.min() >= o and pix.max() < o + h * w
+        np.add.at(hits, pix, 1)
+    assert (hits == 1).all()
+
+
+def test_map_table_is_built_once_per_shapes_and_copied():
+    """The launch's ctypes map table follows `tile_table`; each call gets a
+    copy of the cached one, so filling in its sources leaves the cache
+    alone."""
+    shapes = tuple(s for s in KITTI_LEVELS for _ in (0, 1))
+    table, n_tiles = fast_score._map_table(shapes)
+    rows = fast_score.tile_table(shapes)
+    assert table.count == len(rows)
+    for i, (off, h, w, tiles_x, first) in enumerate(rows):
+        d = table.map[i]
+        assert (d.out, d.h, d.w, d.tiles_x, d.first_tile) == (off, h, w, tiles_x, first)
+    off, h, w, tiles_x, first = rows[-1]
+    assert n_tiles == first + tiles_x * -(-h // fast_score.TILE_H)
+    table.map[0].src = 1234
+    again, _ = fast_score._map_table(shapes)
+    assert again.map[0].src is None
+    assert fast_score._tables[shapes][0] is not table
 
 
 @pytest.mark.parametrize("threshold", [7.0, 20.0])

@@ -8,7 +8,9 @@ it runs without the JAX test harness:
 Tolerances (from tests/test_pallas_kernel.py): sdf within 1e-5; gradient
 99th-percentile error < 1e-4 with at most max(3, N/1000) rows above 1e-4
 (a point on a ReLU boundary may take the other subgradient).
-K2: exact equality on integer-valued images (integer sums in one order).
+K2: exact equality, on integer-valued images and on resized pyramid levels
+(the kernel and the plain version do the same IEEE operations in the same
+order).
 """
 
 import numpy as np
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from dspslam_tpu_torch.datasets.synthetic import blob_images
+from dspslam_tpu_torch.frontend import orb
 from dspslam_tpu_torch.kernels import decoder_fused, fast_score
 from dspslam_tpu_torch.models import deepsdf
 
@@ -39,14 +42,21 @@ def canonical(device, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [7, 300, 2048, 4000])   # 16-row and 32-row blocks
-def test_k1_kernel_matches_plain(cuda, n):
+# ragged 64-row tiles: one row, one tile less / exactly / more, the GN's sizes;
+# each tile on 1 or 2 CTAs of a cluster, and the default choice
+@pytest.mark.parametrize("cluster", [None, *decoder_fused.WIDTHS])
+@pytest.mark.parametrize("n", [1, 7, 63, 64, 65, 300, 2048, 4000, 8192])
+def test_k1_kernel_matches_plain(cuda, n, cluster):
     dec = canonical(cuda)
     x = torch.from_numpy(
         (np.random.default_rng(n).normal(size=(n, 67)) * 0.3).astype(np.float32)
     ).to(cuda)
     before = decoder_fused.sdf_and_input_grad.launches
-    sdf, grad = dec.sdf_and_input_grad(x)
+    if cluster is None:
+        sdf, grad = dec.sdf_and_input_grad(x)
+    else:
+        sdf, grad = decoder_fused.sdf_and_input_grad(
+            list(dec.weights), list(dec.biases), x, cluster=cluster)
     torch.cuda.synchronize()
     assert decoder_fused.sdf_and_input_grad.launches == before + 1
     sdf_p, grad_p = decoder_fused.sdf_and_input_grad_plain(list(dec.weights), list(dec.biases), x)
@@ -81,19 +91,48 @@ def test_non_canonical_decoder_raises(cuda):
 @pytest.mark.parametrize("shape", [(1, 376, 1241), (1, 49, 130), (2, 105, 346)])
 def test_k2_kernel_matches_plain(cuda, shape):
     img = torch.from_numpy(blob_images(*shape, seed=shape[1])).to(cuda)
-    before = fast_score.fast_score_map.launches
-    out = fast_score.fast_score_map(img, 7.0, 20.0, 1e4)
+    before = fast_score.fast_score_maps.launches
+    out = torch.stack(fast_score.fast_score_maps(list(img), 7.0, 20.0, 1e4))
     torch.cuda.synchronize()
-    assert fast_score.fast_score_map.launches == before + 1
+    assert fast_score.fast_score_maps.launches == before + 1
     ref = fast_score.fast_score_map_plain(img, 7.0, 20.0, 1e4)
     assert torch.equal(out, ref)
     assert int((ref >= 1e4).sum()) > 10
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("which", ["kitti_frame", "odd_shapes"])
+def test_k2_multi_map_launch_exact(cuda, which):
+    """One launch for all maps: the 16 levels of a KITTI-shaped stereo frame
+    (integer level 0, resized levels), or mixed odd shapes."""
+    if which == "kitti_frame":
+        shapes = orb.level_shapes(orb.ORBParams(), 376, 1241)
+        imgs = []
+        for seed in (0, 1):
+            base = torch.from_numpy(blob_images(1, 376, 1241, seed=seed)[0]).to(cuda)
+            imgs.append([base if l == 0 else orb.resize(base, h, w).contiguous()
+                         for l, (h, w) in enumerate(shapes)])
+        maps = [pyr[l] for l in range(len(shapes)) for pyr in imgs]
+    else:
+        shapes = [(1, 1), (17, 33), (16, 32), (15, 31), (49, 130), (3, 200), (200, 3)]
+        maps = [torch.from_numpy(blob_images(1, h, w, seed=i)[0]).to(cuda)
+                for i, (h, w) in enumerate(shapes)]
+    before = fast_score.fast_score_maps.launches
+    outs = fast_score.fast_score_maps(maps, 7.0, 20.0, 1e4)
+    torch.cuda.synchronize()
+    assert fast_score.fast_score_maps.launches == before + 1
+    refs = fast_score.fast_score_maps_plain(maps, 7.0, 20.0, 1e4)
+    for out, ref in zip(outs, refs):
+        assert torch.equal(out, ref), tuple(ref.shape)
+    assert sum(int((r >= 1e4).sum()) for r in refs) > 10
+
+
+@pytest.mark.cuda
 def test_k2_wrapper_rejects_what_the_kernel_does_not_take(cuda):
-    img = torch.zeros((1, 20, 30), device=cuda)
+    img = torch.zeros((20, 30), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
-        fast_score.fast_score_map(img.transpose(1, 2))
+        fast_score.fast_score_maps([img.t()])
     with pytest.raises(ValueError, match="float32"):
-        fast_score.fast_score_map(img.half())
+        fast_score.fast_score_maps([img.half()])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fast_score.fast_score_maps([img, img.cpu()])

@@ -171,7 +171,8 @@ def test_extract_level_on_jax_level_images(frame, backend):
     outs = []
     for level, (h, w) in enumerate(torb.level_shapes(tp, *frame.shape)):
         img = frame if level == 0 else np.array(jax.image.resize(jnp.asarray(frame), (h, w), "bilinear"))
-        outs.append(torb.extract_level(_t(img), level, tp, pattern))
+        score = torb.two_tier_scores([_t(img)], tp)[0]
+        outs.append(torb.extract_level(_t(img), level, tp, pattern, score))
     out = {k: torch.cat([o[k] for o in outs]).numpy() for k in outs[0]}
     out["desc"] = out["desc"].view(np.uint32)
     for k in ref:
@@ -179,6 +180,48 @@ def test_extract_level_on_jax_level_images(frame, backend):
             assert np.abs(out[k] - ref[k]).max() <= 1e-4
         else:
             np.testing.assert_array_equal(out[k], np.asarray(ref[k]), err_msg=k)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_extract_stereo_equals_two_extract_calls(frame, backend):
+    """The stereo entry (both pyramids first, one K2 call for all levels of
+    both images) returns bit for bit what two `extract` calls return."""
+    params = torb.ORBParams(n_features=500, n_levels=3, fast_backend=backend)
+    right = np.roll(frame, -7, axis=1).astype(np.uint8)
+    left = frame.astype(np.uint8)
+    before = fast_score.fast_score_maps.launches
+    out_l, out_r = torb.extract_stereo(_t(left), _t(right), params)
+    assert fast_score.fast_score_maps.launches == before      # CPU: plain version
+    for out, img in ((out_l, left), (out_r, right)):
+        ref = torb.extract(_t(img), params)
+        assert set(out) == set(ref)
+        for k in ref:
+            assert torch.equal(out[k], ref[k]), k
+    assert not torch.equal(out_l["xy"], out_r["xy"])
+    with pytest.raises(ValueError, match="shape"):
+        torb.extract_stereo(_t(left), _t(left[:, :-1]), params)
+
+
+def test_extract_stereo_keeps_jax_level0_parity(frame):
+    """Level 0 of the stereo entry on K2's response against JAX's
+    fast_backend="pallas" (the Pallas kernel in interpret mode), as
+    test_extract_single_level_equals_jax checks `extract`."""
+    img = frame.astype(np.uint8)
+    right = np.roll(img, -5, axis=1)
+    jp = jorb.ORBParams(n_features=500, n_levels=1, fast_backend="pallas")
+    tp = torb.ORBParams(n_features=500, n_levels=1, fast_backend="pallas")
+    outs = torb.extract_stereo(_t(img), _t(right), tp)
+    for out, im in zip(outs, (img, right)):
+        ref = jax.device_get(jorb.extract(jnp.asarray(im), jp))
+        for k in ref:
+            o = out[k].numpy()
+            if k == "desc":
+                o = o.view(np.uint32)
+            if k == "angle":
+                assert np.abs(o - ref[k]).max() <= 1e-6
+            else:
+                np.testing.assert_array_equal(o, np.asarray(ref[k]), err_msg=k)
+        assert out["valid"].sum() > 300
 
 
 def test_unported_modes_raise(frame):
