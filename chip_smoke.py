@@ -1,7 +1,7 @@
 """Smoke test of the PyTorch port on one CUDA card: builds kernels K1 and K2
 from the repository's sources, checks each against its plain PyTorch
-version, drives single-frame object reconstruction and stereo tracking
-through their entry points, and times them.
+version, drives single-frame object reconstruction, stereo tracking and
+stereo object SLAM through their entry points, and times them.
 
     python3 chip_smoke.py
 
@@ -40,9 +40,33 @@ Phases (any failure exits non-zero, and no result line is printed):
      run with FAST bound to K2's plain version, one chained frame program
      free of host syncs (`torch.cuda.set_sync_debug_mode("error")`), the
      steady-state ms per frame and a `torch.profiler` table of the
-     pipelined steady state.
-The last lines are a JSON summary of the kernels and
-{"ok": true, "device": {...}}.
+     pipelined steady state;
+  8. stereo object SLAM (slice 3) through its entry points:
+     a. `apps.benchmark_slam.main` (light workload: GT-derived sphere
+        detections, the sphere decoder, pipelined tracking, async joint BA)
+        at KITTI intrinsics, 376x1241, 2000 features, 8 levels, 40 frames
+        through a 30-degree turn: 0 lost frames, ATE < 3% of travel, every
+        static object within 0.35 m of a true sphere centre, an applied
+        local BA solve with a camera-object edge inlier; then the
+        points-only BA arm (`--ba_no_objects`) as the A/B;
+     b. `apps.dsp_slam.build_system` at configs/kitti_00_02.json with phase
+        4's seeded random full-width DeepSDF over phase 7's turn, GT-derived
+        sphere detections: 0 lost frames, ATE < 3% of travel, finite
+        objects, K1 launched exactly as often as the object pipeline's GN
+        calls need (pose-only iterations per measure call, 2 x iterations per
+        recon or refine call) and K2 once per tracked frame plus once per
+        re-tracked frame; per-frame stage times, the time between CUDA
+        events around each local BA solve's and each keyframe's object-GN
+        launches, and a `torch.profiler` table of one keyframe's drain
+        with K1's share;
+     c. `apps.dsp_slam.main` over tests/fixtures/mini_kitti (PNG pairs,
+        velodyne, .lbl labels) on the card and on the CPU, both with K2's
+        FAST response (the CPU through its plain version): the three map
+        files parse and Cameras.txt agrees within 1e-3;
+     and one `keyframe_matching` and one `bundle_adjust` with object edges
+     under `torch.cuda.set_sync_debug_mode("error")`.
+The last lines are a JSON summary of the kernels (K1's and K2's
+`slam_launches` count phase 8b) and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -63,7 +87,8 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
 
-from dspslam_tpu_torch.apps import reconstruct_frame  # noqa: E402
+from dspslam_tpu_torch.apps import benchmark_slam, dsp_slam, reconstruct_frame  # noqa: E402
+from dspslam_tpu_torch.backend import ba  # noqa: E402
 from dspslam_tpu_torch.config import SystemConfig  # noqa: E402
 from dspslam_tpu_torch.datasets.synthetic import (  # noqa: E402
     blob_images, kitti_turn_sequence, render_stereo_u8,
@@ -72,8 +97,9 @@ from dspslam_tpu_torch.frontend import orb  # noqa: E402
 from dspslam_tpu_torch.kernels import _nvcc, decoder_fused, fast_score  # noqa: E402
 from dspslam_tpu_torch.models import deepsdf  # noqa: E402
 from dspslam_tpu_torch.shape import gn  # noqa: E402
-from dspslam_tpu_torch.slam import frame_step, tracking  # noqa: E402
+from dspslam_tpu_torch.slam import frame_step, keyframe_step, tracking  # noqa: E402
 from dspslam_tpu_torch.utils.evaluation import ate_rmse  # noqa: E402
+from dspslam_tpu_torch.utils.timing import StageTimer  # noqa: E402
 from dspslam_tpu_torch.utils.io import read_mesh_ply  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -82,6 +108,7 @@ REPLACES = "dspslam_tpu/ops/pallas/decoder_kernel.py:106"
 K2_SRC = "dspslam_tpu_torch/csrc/fast_score.cu"
 K2_REPLACES = "dspslam_tpu/ops/pallas/fast_kernel.py:41"
 KITTI_CONFIG = "configs/kitti_00_02.json"
+MINI_KITTI = "tests/fixtures/mini_kitti"
 # published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32
 # (CUDA-core) operations/s and dense TF32 tensor-core operations/s
 HBM_BYTES_PER_S = 3.35e12
@@ -648,6 +675,220 @@ def phase_profile(system_cfg, images, wall_ms_per_frame: float):
     print(events.table(sort_by=key, row_limit=25))
 
 
+def phase_slam_accuracy(name: str) -> dict:
+    """8a: the port's benchmark_slam (stereo arm, light workload) at KITTI
+    intrinsics, 376x1241, 2000 features, 8 levels, 40 frames through the
+    30-degree turn: joint BA, pipelined tracking, async BA; then the
+    points-only BA arm (--ba_no_objects) as the A/B."""
+    fast_score.fast_score_maps.launches = 0
+    decoder_fused.sdf_and_input_grad.launches = 0
+    rec = benchmark_slam.main(["--frames", "40"])
+    k2, k1 = fast_score.fast_score_maps.launches, decoder_fused.sdf_and_input_grad.launches
+    limit = 0.03 * rec["travel_m"]
+    print(f"[8a] benchmark_slam, 40 frames (joint BA): {rec['lost_frames']} lost, ATE "
+          f"{rec['ate_rmse_cm']:.4f} cm over {rec['travel_m']:.2f} m; {rec['n_keyframes']} keyframes, "
+          f"{rec['n_points']} map points, {rec['n_objects']} objects ({rec['n_static']} static, "
+          f"errors {[round(e, 4) for e in rec['static_obj_errs_m']]} m; {rec['n_dynamic']} dynamic, "
+          f"{rec['dynamic_obj_err_cm']} cm); mesh chamfer {rec['mesh_chamfer_cm']} cm over "
+          f"{rec['n_meshes']} meshes (64^3 re-decode {rec['mesh_chamfer_refined_cm']} cm); "
+          f"{rec['value']:.3f} fps mean, {rec['median_fps']:.3f} median; K2 launches {k2}, K1 {k1} "
+          f"(sphere decoder) on {name}")
+    print(f"[8a] local BA solves: {rec['ba_solves']}")
+    check(rec["lost_frames"] == 0, f"8a: {rec['lost_frames']} lost frames")
+    check(rec["ate_rmse_cm"] / 100 < limit, f"8a: ATE {rec['ate_rmse_cm']} cm >= 3% of {rec['travel_m']} m")
+    check(rec["n_static"] >= 1 and max(rec["static_obj_errs_m"]) < 0.35,
+          f"8a: static objects {rec['static_obj_errs_m']} (need >= 1, each < 0.35 m)")
+    check(any(b["edge_inliers"] >= 1 for b in rec["ba_solves"]),
+          "8a: no applied local BA solve with a camera-object edge inlier")
+    check(k2 > 0 and k1 == 0, f"8a: K2 launched {k2} times, K1 {k1}")
+    ab = benchmark_slam.main(["--frames", "40", "--ba_no_objects"])
+    print(f"[8a] A/B: ATE joint BA {rec['ate_rmse_cm']:.4f} cm vs points-only {ab['ate_rmse_cm']:.4f} cm; "
+          f"static object error {rec['obj_center_err_cm']} vs {ab['obj_center_err_cm']} cm; "
+          f"{ab['lost_frames']} lost points-only")
+    return {"joint": rec, "points_only": ab}
+
+
+def kitti_detections(poses):
+    """benchmark_slam's GT-derived sphere detections against a sequence's
+    camera-to-world poses, seeded."""
+    spheres = benchmark_slam.place_spheres(poses)
+    rng = np.random.default_rng(3)
+    return lambda idx: benchmark_slam.make_detections(poses[min(idx, len(poses) - 1)], spheres, rng)
+
+
+def phase_slam_k1(system_cfg, exp_dir: str, images, poses, name: str) -> dict:
+    """8b: dsp_slam.build_system at KITTI 00-02 settings with the seeded
+    random full-width DeepSDF decoder (K1 in every object GN iteration) over
+    phase 7's turn, GT-derived sphere detections."""
+    import dataclasses
+
+    cfg = dataclasses.replace(system_cfg, deepsdf_dir=exp_dir)
+    system = dsp_slam.build_system(cfg, None, pipelined=True)
+    system.detection_source = kitti_detections(poses)
+    timer = StageTimer()
+    system.attach_telemetry(timer)
+    pipeline = system.local_mapper.object_pipeline
+    # one keyframe's drain under torch.profiler: the second one that runs
+    # object GN work
+    profiled, drains = {}, [0]
+    drain = system._drain_keyframes
+
+    def profiled_drain():
+        if not system.tracker.new_keyframes or profiled:
+            return drain()
+        drains[0] += 1
+        if drains[0] < 2:
+            return drain()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            drain()
+            torch.cuda.synchronize()
+        profiled["events"] = prof.key_averages()
+
+    system._drain_keyframes = profiled_drain
+    fast_score.fast_score_maps.launches = 0
+    decoder_fused.sdf_and_input_grad.launches = 0
+    kf_frames = []
+    for k, (left, right) in enumerate(images):
+        n_kf = len(system.map.keyframes)
+        system.track_stereo(left, right, 0.1 * k)
+        if len(system.map.keyframes) != n_kf:
+            kf_frames.append(k)
+    system.flush()
+    torch.cuda.synchronize()
+    k1, k2 = decoder_fused.sdf_and_input_grad.launches, fast_score.fast_score_maps.launches
+    expected = pipeline.expected_k1_launches()
+    tr = system.tracker
+    n = len(images)
+    lost = sum(1 for _, _, l in tr.trajectory if l)
+    travel = float(np.linalg.norm(np.diff(poses[:, :3, 3], axis=0), axis=1).sum())
+    ate = ate_rmse(trajectory_wc(tr), poses)["rmse"]
+    objs = [o for o in system.map.objects.values() if not o.bad]
+    print(f"[8b] dsp_slam.build_system (KITTI 00-02, random full-width DeepSDF, pipelined) over {n} "
+          f"frames: {lost} lost, ATE {ate:.5f} m over {travel:.3f} m, {len(system.map.keyframes)} "
+          f"keyframes, {len(system.map.points)} map points, {len(objs)} objects; GN calls "
+          f"{pipeline.dispatches}; K1 launches {k1} (expected {expected}), K2 launches {k2} "
+          f"({tr.n_redone} frames re-tracked) on {name}")
+    check(len(tr.trajectory) == n and lost == 0, f"8b: {lost} lost frames")
+    check(ate < 0.03 * travel, f"8b: ATE {ate} m >= 3% of {travel} m")
+    check(k1 == expected and k1 > 0, f"8b: K1 launched {k1} times, expected {expected} (> 0)")
+    check(k2 == n + tr.n_redone, f"8b: K2 launched {k2} times, expected {n} + {tr.n_redone}")
+    for o in objs:
+        check(bool(np.isfinite(o.T_wo).all() and np.isfinite(o.code).all()), f"8b: object {o.id} not finite")
+    rep = timer.report()
+    track = rep["track"]
+    print(f"[8b] per frame: track mean {track['mean_ms']:.3f} ms, median {track['median_ms']:.3f} ms "
+          f"(n={track['count']}); keyframe frames {kf_frames}: keyframe_drain "
+          f"{[round(x * 1e3, 3) for x in timer.samples['keyframe_drain']]} ms, background_poll "
+          f"{[round(x * 1e3, 3) for x in timer.samples['background_poll']]} ms")
+    print("[8b] stages, host ms (mean / total / count): " + "; ".join(
+        f"{k} {v['mean_ms']:.3f} / {v['total_ms']:.3f} / {v['count']}" for k, v in sorted(rep.items())))
+    print(f"[8b] local BA solves, ms between CUDA events recorded around each solve's launches "
+          f"(device time plus the device's waits for those launches): "
+          f"{[round(b['device_ms'], 3) for b in system.local_mapper.ba_log]}; edges "
+          f"{[b['n_edges'] for b in system.local_mapper.ba_log]}, edge inliers "
+          f"{[b['edge_inliers'] for b in system.local_mapper.ba_log]}")
+    print(f"[8b] object GN per keyframe, ms between CUDA events around its launches: "
+          f"{[round(x, 3) for x in pipeline.gn_device_ms]}")
+    check("events" in profiled, "8b: no keyframe drain was profiled")
+    events = profiled["events"]
+    key, busy = device_ms(events)
+    k1_events = [e for e in events if "decoder_fused_kernel" in e.key]
+    k1_ms = device_ms(k1_events)[1] if k1_events else 0.0
+    print(f"[8b] profile of one keyframe drain: device busy {busy:.3f} ms, K1 {k1_ms:.3f} ms "
+          f"({k1_ms / max(busy, 1e-9):.3f} of it)")
+    print(events.table(sort_by=key, row_limit=20))
+    return {"k1_launches": k1, "k2_launches": k2, "system": system, "k1_share": k1_ms / max(busy, 1e-9)}
+
+
+def phase_cli(tmp: str, name: str):
+    """8c: dsp_slam.main over the mini-KITTI fixture (PNG pairs, velodyne,
+    .lbl labels) on the card and on the CPU, both with K2's FAST response."""
+    with open(os.path.join(MINI_KITTI, "config.template.json")) as f:
+        text = f.read().replace("{SEQ}", os.path.abspath(MINI_KITTI))
+    cfg = os.path.join(tmp, "mini_kitti.json")
+    with open(cfg, "w") as f:
+        f.write(text)
+    cams = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(tmp, f"mini_{dev}")
+        # the CPU run takes K2's two-tier FAST response (its plain version),
+        # as the card does, in place of the CPU's default arc-min response
+        with mock.patch.object(orb, "_use_k2", lambda backend, device: True):
+            system = dsp_slam.main(["--sequence_dir", MINI_KITTI, "--config", cfg, "--map_dir", out,
+                                    "--no_loop", "--device", dev])
+        check(system.state.name == "OK", f"8c: {dev} run ends in {system.state}")
+        cams[dev] = np.loadtxt(os.path.join(out, "Cameras.txt")).reshape(-1, 3, 4)
+        pts = np.loadtxt(os.path.join(out, "MapPoints.txt")).reshape(-1, 3)
+        lines = [ln for ln in open(os.path.join(out, "MapObjects.txt")).read().split("\n") if ln.strip()]
+        check(len(lines) % 3 == 0 and len(lines) >= 3, f"8c: {dev} MapObjects.txt has {len(lines)} lines")
+        for i in range(0, len(lines), 3):
+            int(lines[i])
+            check(len(lines[i + 1].split()) == 12 and len(lines[i + 2].split()) == 64,
+                  f"8c: {dev} MapObjects.txt entry {i // 3} malformed")
+        check(cams[dev].shape[0] == 3 and len(pts) > 100, f"8c: {dev} map files {cams[dev].shape}, {len(pts)} points")
+        print(f"[8c] mini-KITTI CLI on {dev}: {cams[dev].shape[0]} cameras, {len(pts)} map points, "
+              f"{len(lines) // 3} objects")
+    d = float(np.abs(cams["cuda"] - cams["cpu"]).max())
+    print(f"[8c] Cameras.txt card vs CPU: max |d| {d:.3e} on {name}")
+    check(d <= 1e-3, f"8c: Cameras.txt differs from the CPU run by {d}")
+
+
+def phase_mapping_sync_free(system):
+    """One keyframe_matching and one bundle_adjust with camera-object edges,
+    every input on the card, under torch.cuda.set_sync_debug_mode("error")."""
+    kfs = [kf for _, kf in sorted(system.map.keyframes.items())]
+    kf, nbs = kfs[-1], kfs[-3:-1]
+    N, C = kf.n, keyframe_step.FUSE_CAP
+    intr = system.local_mapper.intrinsics
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa: E731
+    rng = np.random.default_rng(5)
+    kf_args = (kf.feats_torch(DEV), t(kf.T_cw), t((kf.map_point_ids >= 0).astype(np.float32)),
+               t(np.zeros(N, np.float32)), [o.feats_torch(DEV) for o in nbs],
+               t(np.stack([o.T_cw for o in nbs])), t(np.stack([(o.map_point_ids >= 0).astype(np.float32) for o in nbs])),
+               t(np.ones(2, np.float32)), t((rng.normal(0, 5, (C, 3)) + [0, 0, 15]).astype(np.float32)),
+               t(np.ones(C, np.float32)), t(rng.integers(0, 2**31, (C, 8)).astype(np.int32)),
+               t(np.zeros(C, np.int32)), intr)
+    # a window at the local mapper's smallest bucket: 16 keyframes, 1024
+    # points, 4096 observations, 8 objects, 32 edges
+    K, P, O, M, Q = 16, 1024, 4096, 8, 32
+    pts = np.stack([rng.uniform(-6, 6, P), rng.uniform(-2, 2, P), rng.uniform(8, 30, P)], -1).astype(np.float32)
+    poses = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
+    poses[:, 2, 3] = -0.5 * np.arange(K)
+    obs_kf = rng.integers(0, K, O).astype(np.int32)
+    obs_pt = rng.integers(0, P, O).astype(np.int32)
+    pc = pts[obs_pt] + poses[obs_kf, :3, 3]
+    cam = intr.cpu().numpy()
+    uvr = np.stack([cam[0] * pc[:, 0] / pc[:, 2] + cam[2], cam[1] * pc[:, 1] / pc[:, 2] + cam[3],
+                    cam[0] * pc[:, 0] / pc[:, 2] + cam[2] - cam[4] / pc[:, 2]], -1).astype(np.float32)
+    T_wo = np.tile(np.eye(4, dtype=np.float32), (M, 1, 1))
+    T_wo[:, :3, 3] = pts[:M]
+    edge_kf, edge_obj = rng.integers(0, K, Q).astype(np.int32), rng.integers(0, M, Q).astype(np.int32)
+    obj_state = {"poses": t(T_wo), "fixed": t(np.zeros(M, np.float32)), "edge_kf": t(edge_kf),
+                 "edge_obj": t(edge_obj), "edge_Tco": t(poses[edge_kf] @ T_wo[edge_obj]),
+                 "edge_valid": t(np.ones(Q, np.float32))}
+    fixed = np.zeros(K, np.float32)
+    fixed[0] = 1
+    ba_args = (t(poses), t(fixed), t(pts + rng.normal(0, 0.05, pts.shape).astype(np.float32)),
+               t(np.ones(P, np.float32)), t(obs_kf), t(obs_pt), t(uvr + rng.normal(0, 0.5, uvr.shape).astype(np.float32)),
+               t(np.ones(O, np.float32)), t(np.ones(O, np.float32)), t(np.ones(O, np.float32)), intr, 1e-3, obj_state)
+    keyframe_step.keyframe_matching(*kf_args)
+    ba.bundle_adjust(*ba_args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out_kf = keyframe_step.keyframe_matching(*kf_args)
+        out_ba = ba.bundle_adjust(*ba_args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out_ba["kf_poses"]).all() and torch.isfinite(out_ba["obj_poses"]).all()),
+          "bundle_adjust gave non-finite poses")
+    print(f"[8] keyframe_matching and bundle_adjust (K={K}, P={P}, O={O}, M={M}, Q={Q}) under "
+          f"set_sync_debug_mode('error'): no host sync; {int(out_kf['tri_ok'].sum())} triangulations, "
+          f"{int(out_ba['obs_inlier'].sum())} BA inliers, {int(out_ba['obj_edge_inlier'].sum())} edge inliers")
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -666,19 +907,24 @@ def main():
     k1 = phase_kernel(dec, libs[0], name)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_slice(tmp)
-    ms = phase_gn(name)
+        ms = phase_gn(name)
 
-    system_cfg = SystemConfig.from_json(KITTI_CONFIG)
-    params = tracking.tracker_from_system_config(system_cfg, device="cpu").orb_params
-    t0 = time.perf_counter()
-    world, poses, baseline = kitti_turn_sequence(system_cfg.camera)
-    images = render_stereo_u8(world, poses, baseline)
-    print(f"[7] rendered {len(images)} stereo pairs at {images[0][0].shape} in "
-          f"{time.perf_counter() - t0:.1f} s (before any timing)")
-    k2 = phase_fast(images[0], params, libs[1], name)
-    trk = phase_tracking(system_cfg, images, poses, name)
-    phase_sync_free(trk["pipelined"]["tracker"], images)
-    phase_profile(system_cfg, images, trk["pipelined"]["wall_ms"])
+        system_cfg = SystemConfig.from_json(KITTI_CONFIG)
+        params = tracking.tracker_from_system_config(system_cfg, device="cpu").orb_params
+        t0 = time.perf_counter()
+        world, poses, baseline = kitti_turn_sequence(system_cfg.camera)
+        images = render_stereo_u8(world, poses, baseline)
+        print(f"[7] rendered {len(images)} stereo pairs at {images[0][0].shape} in "
+              f"{time.perf_counter() - t0:.1f} s (before any timing)")
+        k2 = phase_fast(images[0], params, libs[1], name)
+        trk = phase_tracking(system_cfg, images, poses, name)
+        phase_sync_free(trk["pipelined"]["tracker"], images)
+        phase_profile(system_cfg, images, trk["pipelined"]["wall_ms"])
+
+        phase_slam_accuracy(name)
+        slam = phase_slam_k1(system_cfg, os.path.join(tmp, "deepsdf"), images, poses, name)
+        phase_mapping_sync_free(slam["system"])
+        phase_cli(tmp, name)
 
     print(name)
     kernels = [{
@@ -695,6 +941,7 @@ def main():
                           for n in (2048, 8192)},
         "tf32_hgmma_instructions": sum(c["tf32"] for c in k1["tensor"].values()),
         "gn_ms_per_object": ms["kernel"], "gn_plain_ms_per_object": ms["plain"],
+        "slam_launches": slam["k1_launches"], "slam_keyframe_drain_share": slam["k1_share"],
     }, {
         "name": "fast_score", "route": "cuda", "source": K2_SRC, "replaces": K2_REPLACES,
         "launches": trk["launches"], "max_abs_err": k2["max_abs_err"],
@@ -706,6 +953,7 @@ def main():
         "frame_bound_ms": k2["frame_bound_ms"],
         "instructions_per_pixel": k2["instructions_per_pixel"],
         "tracking_ms_per_frame": {f: trk[f]["median_ms"] for f in ("non-pipelined", "pipelined")},
+        "slam_launches": slam["k2_launches"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

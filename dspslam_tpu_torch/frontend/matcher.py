@@ -81,6 +81,15 @@ def rotation_consistency(angles_a, angles_b, match_idx) -> torch.Tensor:
     return torch.where(matched & keep_bin[bins], match_idx, -1)
 
 
+def match_features(feats_a: dict, feats_b: dict, max_dist: int = TH_LOW, ratio: float = 0.9):
+    """Full-frame brute-force matching with mutual-best + rotation check.
+    Returns (idx (N,) int32 into feats_b, -1 for unmatched; dist (N,))."""
+    dist = hamming_matrix(feats_a["desc"], feats_b["desc"])
+    cand = (feats_a["valid"][:, None] > 0) & (feats_b["valid"][None, :] > 0)
+    idx, d = masked_match(dist, cand, max_dist, ratio, mutual=True)
+    return rotation_consistency(feats_a["angle"], feats_b["angle"], idx), d
+
+
 def match_by_projection(proj_xy, proj_valid, proj_desc, proj_level, feats: dict,
                         radius: float, max_dist: int = TH_HIGH,
                         ratio: float | None = 0.9, level_slack: int | None = None):

@@ -244,6 +244,36 @@ def points_to_pose_jacobian_se3(points: torch.Tensor) -> torch.Tensor:
     return torch.cat([eye, -hat(points)], dim=-1)
 
 
+def se3_left_jacobian_inv(x: torch.Tensor) -> torch.Tensor:
+    """Inverse left Jacobian of SE(3) at tangents (..., 6) [v, w] ->
+    (..., 6, 6): d log(exp(d) T) / d d at d = 0 for log(T) = x, from the
+    SO(3) inverse and the coupling block Q(v, w) (Barfoot, State Estimation
+    for Robotics, eq. 7.86). Q's coefficients take their Taylor series
+    below theta^2 = 0.25, where the closed forms cancel in f32."""
+    v, w = x[..., :3], x[..., 3:6]
+    t2 = torch.sum(w * w, dim=-1)
+    t4 = t2 * t2
+    small = t2 < 0.25
+    safe = torch.where(small, torch.ones_like(t2), t2)
+    th = torch.sqrt(safe)
+    s, c = torch.sin(th), torch.cos(th)
+    c1 = torch.where(small, 1.0 / 6.0 - t2 / 120.0 + t4 / 5040.0, (th - s) / (safe * th))
+    c2 = torch.where(small, 1.0 / 24.0 - t2 / 720.0 + t4 / 40320.0,
+                     (safe + 2.0 * c - 2.0) / (2.0 * safe * safe))
+    c3 = torch.where(small, 1.0 / 120.0 - t2 / 2520.0 + t4 / 120960.0,
+                     (2.0 * th - 3.0 * s + th * c) / (2.0 * safe * safe * th))
+    Wh, Vh = hat(w), hat(v)
+    WV, VW = Wh @ Vh, Vh @ Wh
+    WVW, WW = WV @ Wh, Wh @ Wh
+    Q = (0.5 * Vh + c1[..., None, None] * (WV + VW + WVW)
+         + c2[..., None, None] * (WW @ Vh + VW @ Wh - 3.0 * WVW)
+         + c3[..., None, None] * (WVW @ Wh + Wh @ WVW))
+    Ji = _so3_left_jacobian_inv(w)
+    top = torch.cat([Ji, -(Ji @ Q @ Ji)], dim=-1)
+    bottom = torch.cat([torch.zeros_like(Ji), Ji], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
 def adjoint_se3(T: torch.Tensor) -> torch.Tensor:
     """SE(3) adjoint in [v, w] ordering: (..., 4, 4) -> (..., 6, 6)."""
     R = T[..., :3, :3]

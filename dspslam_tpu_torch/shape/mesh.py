@@ -178,8 +178,31 @@ class MeshExtractor:
         self.voxels_dim = voxels_dim
         self.device = device
 
-    def extract_mesh_from_code(self, code):
+    def dispatch(self, code):
+        """Async half: queue the voxel-grid SDF decode and its copy into
+        pinned host memory; marching tetrahedra (host) runs at collect().
+        Returns a handle (host grid, CUDA event or None on the CPU)."""
         code = torch.as_tensor(code, dtype=torch.float32, device=self.device)
         sdf = decode_sdf_grid(self.decoder, code[: self.code_len], self.voxels_dim)
-        vertices, faces = marching_tetrahedra(sdf.cpu().numpy(), 0.0)
+        if not sdf.is_cuda:
+            return sdf, None
+        host = torch.empty(sdf.shape, dtype=sdf.dtype, pin_memory=True).copy_(sdf, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    @staticmethod
+    def ready(handle) -> bool:
+        """Whether a dispatched grid has reached the host."""
+        return handle[1] is None or handle[1].query()
+
+    @staticmethod
+    def collect(handle):
+        sdf, event = handle
+        if event is not None:
+            event.synchronize()
+        vertices, faces = marching_tetrahedra(sdf.numpy(), 0.0)
         return {"vertices": vertices, "faces": faces}
+
+    def extract_mesh_from_code(self, code):
+        return self.collect(self.dispatch(code))

@@ -52,11 +52,32 @@ def resolve_device(device) -> torch.device:
     return d
 
 
+def entry_device(device, who: str) -> torch.device:
+    """The device of an entry point: None means cuda, and cuda without a
+    usable card raises (no quiet run on the CPU)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}: device cuda was asked for but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run on the CPU"
+        )
+    device = resolve_device(device)
+    if device.type == "cuda":
+        # geometry runs in full f32 (the JAX package pins "highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
 def to_torch(a, device) -> torch.Tensor:
     """A host array as a tensor on `device`; uint32 (descriptor words)
-    becomes its int32 bit view."""
+    becomes its int32 bit view. To the card it goes through pinned memory
+    without waiting for the device's queued work."""
     a = np.ascontiguousarray(a)
-    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(device)
+    t = torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def _feats_torch(entity, device) -> dict:
@@ -240,6 +261,9 @@ class MapObject:
         # observation time must use this id, not max(observations) — for
         # a dynamic object the mismatch is velocity * keyframe_gap.
         self.last_measured_kf_id: Optional[int] = None
+        # frame id of that keyframe: the constant-velocity prediction's
+        # horizon starts there (it outlives the keyframe's culling)
+        self.last_measured_frame_id: Optional[int] = None
         self.vertices: Optional[np.ndarray] = None
         self.faces: Optional[np.ndarray] = None
         self.point_ids: set[int] = set()
@@ -297,7 +321,14 @@ class Map:
         self.keyframes[kf.id] = kf
 
     def erase_keyframe(self, kf_id: int):
+        """Remove a keyframe and every covisibility entry naming it, in
+        every keyframe that lists it (reference KeyFrame::SetBadFlag).
+        The JAX package erased it only from the keyframes in its own
+        `covis`, and a stale entry elsewhere crashed BA dispatch
+        (KeyError: 48, ROADMAP fault R1)."""
         self.keyframes.pop(kf_id, None)
+        for other in self.keyframes.values():
+            other.covis.pop(kf_id, None)
         for hook in self.keyframe_erase_hooks:
             hook(kf_id)
 
@@ -368,7 +399,9 @@ class Map:
 
     # -- covisibility ------------------------------------------------------
     def update_covisibility(self, kf: KeyFrame):
-        """Recount shared map points (KeyFrame::UpdateConnections)."""
+        """Recount shared map points (KeyFrame::UpdateConnections). Only
+        keyframes still in the map count, and the relation stays symmetric:
+        a keyframe that drops out of kf's list loses kf from its own."""
         counts: dict[int, int] = {}
         for p_id in kf.map_point_ids:
             if p_id < 0:
@@ -377,17 +410,19 @@ class Map:
             if p is None or p.bad:
                 continue
             for other_id in p.observations:
-                if other_id != kf.id:
+                if other_id != kf.id and other_id in self.keyframes:
                     counts[other_id] = counts.get(other_id, 0) + 1
         kept = {k: v for k, v in counts.items() if v >= COVIS_THRESHOLD}
         if not kept and counts:
             best = max(counts, key=counts.get)
             kept = {best: counts[best]}
-        kf.covis = kept
-        for other_id, w in kept.items():
+        for other_id in kf.covis.keys() - kept.keys():
             other = self.keyframes.get(other_id)
             if other is not None:
-                other.covis[kf.id] = w
+                other.covis.pop(kf.id, None)
+        kf.covis = kept
+        for other_id, w in kept.items():
+            self.keyframes[other_id].covis[kf.id] = w
         # spanning tree: attach to the strongest covisible parent
         if kf.parent is None and kept:
             parent_id = max(kept, key=kept.get)
@@ -398,9 +433,10 @@ class Map:
                     parent.children.add(kf.id)
 
     def local_keyframes(self, kf: KeyFrame, k: int = 20) -> list[int]:
-        """kf + its top-k covisible neighbours (local BA window)."""
+        """kf + its top-k covisible neighbours (local BA window), only ids
+        still in the map."""
         ids = [kf.id] + kf.covisible_keyframes(k)
-        return list(dict.fromkeys(ids))
+        return [i for i in dict.fromkeys(ids) if i in self.keyframes]
 
     def points_seen_by(self, kf_ids: list[int]) -> list[int]:
         seen = {}

@@ -20,6 +20,7 @@ pass device="cpu" to run on the CPU (the kernels' plain versions).
 from __future__ import annotations
 
 import dataclasses
+import time
 from enum import Enum
 
 import numpy as np
@@ -28,7 +29,7 @@ import torch
 from ..frontend import matcher, orb, stereo
 from ..ops import lie_np
 from . import frame_step, pose_opt
-from .map import Frame, KeyFrame, Map, MapPoint, feats_to_numpy, resolve_device, to_torch
+from .map import Frame, KeyFrame, Map, MapPoint, entry_device, feats_to_numpy, to_torch
 
 LOCAL_POINT_CAP = 4096
 
@@ -147,17 +148,7 @@ def _pack_map_points(entries, cap):
 class Tracker:
     def __init__(self, config: TrackerConfig, slam_map: Map,
                  orb_params: orb.ORBParams = orb.ORBParams(), device=None):
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "Tracker: device cuda was asked for but torch.cuda.is_available() "
-                "is False; pass device='cpu' to run on the CPU"
-            )
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # geometry runs in full f32 (the JAX package pins "highest")
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        self.device = entry_device(device, "Tracker")
         self.cfg = config
         self.map = slam_map
         self.orb_params = orb_params
@@ -171,7 +162,10 @@ class Tracker:
         self.new_keyframes: list[KeyFrame] = []   # queue for local mapping
         self.trajectory: list[tuple[float, np.ndarray, bool]] = []
         self.relocalizer = None                   # hook: relocalization (later slice)
-        self.mapper_idle_fn = None                # hook: local mapping (later slice)
+        self.localization_only = False            # tracking against a frozen map
+        self.mapper_idle_fn = None                # set by the system facade
+        self.telemetry = None                     # optional StageTimer: result_fetch
+        # spans are the frame's wait for its device results
         # pipelined-mode state (cfg.pipelined)
         self.frame_seq = 0                        # per-call sequence index
         self._current_seq = -1                    # seq of the frame being finalized
@@ -192,6 +186,10 @@ class Tracker:
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
+
+    def _span(self, name: str, t0: float):
+        if self.telemetry is not None:
+            self.telemetry.add(name, time.perf_counter() - t0)
 
     def _to_device(self, *arrays):
         """Host numpy arrays -> device tensors (uint32 as int32 bits)."""
@@ -247,7 +245,9 @@ class Tracker:
             *last, *dev,
         )
         # one fetch for everything the host needs this frame
+        t0 = time.perf_counter()
         out = _host_result(*_prefetch_to_host({"feats": feats_j, "st": st_j, "result": result_j}))
+        self._span("result_fetch", t0)
         st = out["st"]
         frame = Frame(timestamp, out["feats"], depth=st["depth"], u_right=st["u_right"])
         frame, _ = self._apply_fused_result(frame, out["result"], cid, cpos, cval)
@@ -390,7 +390,9 @@ class Tracker:
     def _finalize_inflight(self, h) -> Frame:
         """Wait for a dispatched frame's results and run the host
         bookkeeping (one frame behind in pipelined mode)."""
+        t0 = time.perf_counter()
         out = _host_result(h["host"], h["event"])
+        self._span("result_fetch", t0)
         st, result = out["st"], out["result"]
         frame = Frame(h["timestamp"], h["feats_j"], depth=st["depth"], u_right=st["u_right"])
         cur_seq = self._current_seq
@@ -646,7 +648,7 @@ class Tracker:
         """Keyframe policy (Tracking::NeedNewKeyFrame): insert when enough
         frames have passed, or when tracking support has visibly decayed
         relative to the reference keyframe after a minimum spacing."""
-        if self.ref_kf is None:
+        if self.localization_only or self.ref_kf is None:
             return False
         if self.frames_since_kf >= self.cfg.max_frames_between_kf:
             return True

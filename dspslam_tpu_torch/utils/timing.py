@@ -34,6 +34,10 @@ class StageTimer:
                 torch.cuda.synchronize(target.device)
             self.samples[name].append(time.perf_counter() - t0)
 
+    def add(self, name: str, seconds: float):
+        """Record an externally timed sample."""
+        self.samples[name].append(seconds)
+
     def report(self) -> dict:
         return {
             name: {
@@ -53,3 +57,10 @@ class StageTimer:
             for name, s in sorted(self.report().items())
         ]
         return "\n".join(rows)
+
+    def summary_ms(self) -> dict:
+        """Flat {stage: p50 / p95 / total ms and count} for a JSON line."""
+        return {
+            name: {"p50": s["median_ms"], "p95": s["p95_ms"], "total": s["total_ms"], "n": s["count"]}
+            for name, s in sorted(self.report().items())
+        }

@@ -33,6 +33,10 @@ def test_port_has_sources():
         "matcher.py", "stereo.py", "pose_opt.py", "map.py", "frame_step.py", "tracking.py",
         "synthetic.py", "evaluation.py",
     } <= names
+    assert {
+        "keyframe_step.py", "ba.py", "local_mapping.py", "association.py", "pipeline.py",
+        "system.py", "kitti.py", "dsp_slam.py", "benchmark_slam.py",
+    } <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
