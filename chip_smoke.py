@@ -64,13 +64,41 @@ Phases (any failure exits non-zero, and no result line is printed):
         FAST response (the CPU through its plain version): the three map
         files parse and Cameras.txt agrees within 1e-3;
      and one `keyframe_matching` and one `bundle_adjust` with object edges
-     under `torch.cuda.set_sync_debug_mode("error")`.
+     under `torch.cuda.set_sync_debug_mode("error")`;
+  9. monocular and RGB-D SLAM (slice 4) through their entry points, at
+     configs/freiburg_001.json's camera (960x540, fx 930.2, 4000 features,
+     8 levels): K2 exact on a mono frame's 8 level maps in one launch, timed;
+     a. `apps.benchmark_slam.main(["--mono", "--mono_profile", "freiburg"])`
+        over 40 frames of a strafe with a 20-degree view yaw, pipelined then
+        not: two-view initialization within the first 10 frames, 0 frames
+        lost after it, Sim(3)-aligned ATE < 3% of travel, K2 once per
+        extracted frame (re-tracked frames included); mean and median fps,
+        p99 frame ms, stage times; one `--paced` run's drop rate at 25 fps;
+        a `torch.profiler` table of 4 pipelined frames, the Hamming
+        matrices' time and peak memory at 4000 features, and one
+        `track_frame_mono_chained` under set_sync_debug_mode("error");
+     b. `SLAMSystem.track_mono` with `MonoObjectPipeline` over
+        tests/test_mono_objects.py's sphere scene rendered at Freiburg's
+        camera: the sphere decoder (the object within 0.5 R of the truth
+        after gauge alignment), then phase 4's random full-width DeepSDF
+        (finite objects, K1 launched exactly `expected_k1_launches()` > 0
+        times, each object-GN call's span, K1's share of one reconstructing
+        keyframe's drain);
+     c. `apps.dsp_slam_mono.main` over a 6-frame fixture it writes (raw
+        renders through freiburg_001.json's lens, PNG, .npz labels) on the
+        card and on the CPU, both with K2's FAST response:
+        trajectory_tum.txt agrees within 1e-3 and the map files parse;
+     d. `SLAMSystem.track_rgbd`, fused and pipelined, over 24 frames of 9a's
+        sequence with its rendered depth images: 0 lost frames, ATE < 3% of
+        travel, one K2 launch per frame.
 The last lines are a JSON summary of the kernels (K1's and K2's
-`slam_launches` count phase 8b) and {"ok": true, "device": {...}}.
+`slam_launches` count phase 8b, their `mono_launches` phases 9b and 9a)
+and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -87,17 +115,21 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
 
-from dspslam_tpu_torch.apps import benchmark_slam, dsp_slam, reconstruct_frame  # noqa: E402
+from dspslam_tpu_torch.apps import benchmark_slam, dsp_slam, dsp_slam_mono, reconstruct_frame  # noqa: E402
 from dspslam_tpu_torch.backend import ba  # noqa: E402
 from dspslam_tpu_torch.config import SystemConfig  # noqa: E402
+from dspslam_tpu_torch.datasets.mono import build_mono_detection  # noqa: E402
 from dspslam_tpu_torch.datasets.synthetic import (  # noqa: E402
     blob_images, kitti_turn_sequence, render_stereo_u8,
 )
-from dspslam_tpu_torch.frontend import orb  # noqa: E402
+from dspslam_tpu_torch.detect import offline  # noqa: E402
+from dspslam_tpu_torch.frontend import matcher, orb, undistort  # noqa: E402
 from dspslam_tpu_torch.kernels import _nvcc, decoder_fused, fast_score  # noqa: E402
 from dspslam_tpu_torch.models import deepsdf  # noqa: E402
+from dspslam_tpu_torch.objects.mono_pipeline import MonoObjectPipeline  # noqa: E402
 from dspslam_tpu_torch.shape import gn  # noqa: E402
 from dspslam_tpu_torch.slam import frame_step, keyframe_step, tracking  # noqa: E402
+from dspslam_tpu_torch.slam.system import SLAMSystem  # noqa: E402
 from dspslam_tpu_torch.utils.evaluation import ate_rmse  # noqa: E402
 from dspslam_tpu_torch.utils.timing import StageTimer  # noqa: E402
 from dspslam_tpu_torch.utils.io import read_mesh_ply  # noqa: E402
@@ -720,8 +752,6 @@ def phase_slam_k1(system_cfg, exp_dir: str, images, poses, name: str) -> dict:
     """8b: dsp_slam.build_system at KITTI 00-02 settings with the seeded
     random full-width DeepSDF decoder (K1 in every object GN iteration) over
     phase 7's turn, GT-derived sphere detections."""
-    import dataclasses
-
     cfg = dataclasses.replace(system_cfg, deepsdf_dir=exp_dir)
     system = dsp_slam.build_system(cfg, None, pipelined=True)
     system.detection_source = kitti_detections(poses)
@@ -889,6 +919,462 @@ def phase_mapping_sync_free(system):
           f"{int(out_ba['obs_inlier'].sum())} BA inliers, {int(out_ba['obj_edge_inlier'].sum())} edge inliers")
 
 
+class SphereScene:
+    """tests/test_mono_objects.py's scene at another camera: a far plane and
+    large internally textured near patches (two depth layers) behind a
+    radius-0.8 sphere with a blocky 3D texture, seen by a camera strafing
+    along +x. Texture features keep their world size (pixel sizes scale
+    with fx / 500, the test's focal length; counts with the image area).
+    `dist` renders the lens's raw image: each raw pixel samples the scene
+    at its undistorted position (rows beyond the canvas repeat its edge)."""
+
+    FAR_Z, NEAR_Z = 8.0, 3.5
+    CENTER = np.array([0.8, 0.25, 5.0], np.float32)
+    RADIUS = 0.8
+
+    def __init__(self, w: int, h: int, fx: float, cx: float, cy: float, dist=None, seed: int = 11):
+        self.w, self.h, self.fx, self.cx, self.cy = w, h, fx, cx, cy
+        self.K = np.array([[fx, 0, cx], [0, fx, cy], [0, 0, 1]], np.float32)
+        uv = np.stack(np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32)), -1)
+        if undistort.has_distortion(dist):
+            uv = undistort.undistort_points(uv.reshape(-1, 2), self.K, dist).reshape(h, w, 2)
+        self.u, self.v = uv[..., 0], uv[..., 1]
+        # the test's draws, in its order; at its camera (640 x 240, fx 500)
+        # the same scene
+        f = fx / 500.0
+        n = w * h / (640 * 240) / f ** 2
+        rng = np.random.default_rng(seed)
+        far = rng.normal(80, 10, (h, 4 * w)).astype(np.float32)
+        for _ in range(int(round(700 * n))):
+            y, x = rng.integers(10, h - int(round(20 * f))), rng.integers(10, 4 * w - int(round(20 * f)))
+            s = int(round(rng.integers(4, 12) * f))
+            far[y: y + s, x: x + s] = rng.uniform(150, 230)
+        near = np.full((h, 8 * w), np.nan, np.float32)
+        for _ in range(int(round(150 * n))):
+            y = rng.integers(10, h - int(round(48 * f)))
+            x = rng.integers(10, 8 * w - int(round(48 * f)))
+            s = int(round(rng.integers(24, 44) * f))
+            patch = rng.normal(120, 25, (s, s)).astype(np.float32)
+            for _ in range(6):
+                py, px = rng.integers(2, s - int(round(10 * f)), 2)
+                q = int(round(rng.integers(4, 8) * f))
+                patch[py: py + q, px: px + q] = rng.uniform(30, 240)
+            near[y: y + s, x: x + s] = patch
+        self.far, self.near = far, near
+        self.tex = np.random.default_rng(5).uniform(30, 235, (64,) * 3).astype(np.float32)
+
+    def _layer(self, tex, z, cam_x):
+        cols = np.clip(np.round(self.u + self.w + self.fx * cam_x / z).astype(np.int64), 0, tex.shape[1] - 1)
+        rows = np.clip(np.round(self.v).astype(np.int64), 0, tex.shape[0] - 1)
+        return tex[rows, cols]
+
+    def sphere_hit(self, cam_x: float):
+        """(mask (h, w), world points where the raw pixels' rays hit)."""
+        d = np.stack([(self.u - self.cx) / self.fx, (self.v - self.cy) / self.fx, np.ones_like(self.u)], -1)
+        c = self.CENTER - np.array([cam_x, 0, 0], np.float32)
+        b = d @ c
+        dd = np.sum(d * d, axis=-1)
+        disc = b * b - dd * (c @ c - self.RADIUS ** 2)
+        t = (b - np.sqrt(np.maximum(disc, 0.0))) / np.maximum(dd, 1e-9)
+        hit = (disc > 0) & (t > 0.1)
+        return hit, t[..., None] * d + np.array([cam_x, 0, 0], np.float32)
+
+    def render(self, cam_x: float) -> np.ndarray:
+        img = self._layer(self.far, self.FAR_Z, cam_x)
+        near = self._layer(self.near, self.NEAR_Z, cam_x)
+        img = np.where(np.isnan(near), img, near)
+        hit, p = self.sphere_hit(cam_x)
+        idx = np.floor(p[hit] * 20.0).astype(np.int64) % 64
+        img[hit] = self.tex[idx[:, 0], idx[:, 1], idx[:, 2]]
+        return np.clip(np.round(img), 0, 255).astype(np.uint8)
+
+    def label(self, cam_x: float):
+        """(box (1, 4) [l, t, r, b], mask (1, h, w)) of the sphere, or None."""
+        hit, _ = self.sphere_hit(cam_x)
+        if hit.sum() < 1200:
+            return None
+        ys, xs = np.nonzero(hit)
+        return np.array([[xs.min(), ys.min(), xs.max() + 1, ys.max() + 1]], np.float32), hit[None]
+
+
+MONO_FRAMES = 40
+SPHERE_STEP = 0.15
+SPHERE_FRAMES = 26
+FREIBURG_CONFIG = "configs/freiburg_001.json"
+
+
+def mono_level_maps(img: np.ndarray, params) -> list:
+    """The 8 (h, w) level maps of one mono frame on the card, in the order
+    `orb.extract` gives them to K2."""
+    t = torch.from_numpy(img).to(DEV).float()
+    return [t if level == 0 else orb.resize(t, h, w).contiguous()
+            for level, (h, w) in enumerate(orb.level_shapes(params, *img.shape))]
+
+
+def phase_mono_fast(name: str) -> dict:
+    """9: K2 on the 8 level maps of a Freiburg-shaped mono frame (960x540
+    ... 268x151, resized levels non-integer) in one launch: exact against
+    its plain version; time per frame in turns plain, kernel, kernel,
+    plain."""
+    params = orb.ORBParams(n_features=4000, n_levels=8)
+    world, _, poses = benchmark_slam.mono_sequence("freiburg", 2)
+    img = np.clip(world.render_pose(poses[0]), 0, 255).astype(np.uint8)
+    levels = mono_level_maps(img, params)
+    t_lo, t_hi = float(params.min_threshold), float(params.fast_threshold)
+    before = fast_score.fast_score_maps.launches
+    outs = fast_score.fast_score_maps(levels, t_lo, t_hi, orb.BOOST)
+    torch.cuda.synchronize()
+    check(fast_score.fast_score_maps.launches == before + 1, "K2 took more than one launch for a mono frame")
+    refs = fast_score.fast_score_maps_plain(levels, t_lo, t_hi, orb.BOOST)
+    max_err = 0.0
+    for x, out, ref in zip(levels, outs, refs):
+        max_err = max(max_err, float((out - ref).abs().max()))
+        check(bool(torch.equal(out, ref)), f"K2 differs from its plain version on a {tuple(x.shape)} mono level")
+    runs = {"plain": [], "kernel": []}
+    for path in ("plain", "kernel", "kernel", "plain"):
+        fn = fast_score.fast_score_maps if path == "kernel" else fast_score.fast_score_maps_plain
+        runs[path].append(cuda_ms(lambda: fn(levels, t_lo, t_hi, orb.BOOST), 50))
+    ms = {k: float(np.mean(v)) for k, v in runs.items()}
+    dev = kernel_device_ms(lambda: fast_score.fast_score_maps(levels, t_lo, t_hi, orb.BOOST),
+                           50, "fast_score_maps_kernel")
+    px = sum(x.numel() for x in levels)
+    corners = sum(int((r != 0).sum()) for r in refs)
+    b, by = k2_bound(px, corners)
+    print(f"[9] K2 vs plain on the 8 level maps of a Freiburg-shaped mono frame "
+          f"({' '.join(f'{h}x{w}' for h, w in (tuple(x.shape) for x in levels))}), one launch: exact; "
+          f"time per frame kernel {ms['kernel']:.5f} ms ({runs['kernel'][0]:.5f}, {runs['kernel'][1]:.5f}; "
+          f"device {dev:.5f}), plain {ms['plain']:.5f} ms ({runs['plain'][0]:.5f}, {runs['plain'][1]:.5f}), "
+          f"bound {b:.5f} ms ({by}; {px} px, {corners} low-tier corners) on {name}")
+    return {"max_abs_err": max_err, "ms": ms["kernel"], "plain_ms": ms["plain"], "device_ms": dev,
+            "bound_ms": b, "bound_by": by}
+
+
+def phase_mono_tracking(name: str) -> dict:
+    """9a: the mono arm of benchmark_slam at Freiburg's camera (960x540, fx
+    930.2, 4000 features, 8 levels), pipelined then not: two-view
+    initialization within the first 10 frames, 0 frames lost after it,
+    Sim(3)-aligned ATE < 3% of travel, K2 once per extracted frame; then one
+    --paced run's drop rate at 25 fps."""
+    out = {"launches": 0}
+    base = ["--mono", "--mono_profile", "freiburg", "--frames", str(MONO_FRAMES)]
+    for pipelined in (True, False):
+        form = "pipelined" if pipelined else "non-pipelined"
+        # the main path: counts from 0 just before, read just after
+        fast_score.fast_score_maps.launches = 0
+        decoder_fused.sdf_and_input_grad.launches = 0
+        rec = benchmark_slam.main(base + ([] if pipelined else ["--no_pipeline"]))
+        k2, k1 = fast_score.fast_score_maps.launches, decoder_fused.sdf_and_input_grad.launches
+        out["launches"] += k2
+        print(f"[9a] mono {form}, {rec['frames']} frames at {rec['width']}x{rec['height']}: initialized at "
+              f"frame {rec['init_frame']}, {rec['lost_after_init']} lost after it, ATE (Sim(3)-aligned) "
+              f"{rec['ate_rmse_cm']} cm over {rec['travel_m']:.2f} m ({rec['ate_frac_of_travel']} of travel); "
+              f"{rec['n_keyframes']} keyframes, {rec['n_points']} map points; {rec['value']:.3f} fps mean, "
+              f"{rec['median_fps']:.3f} median, p99 frame {rec['frame_ms_p99']:.3f} ms; K2 launches {k2} "
+              f"({rec['frames_tracked']} frames + {rec['n_redone']} re-tracked), K1 {k1} on {name}")
+        print(f"[9a] mono {form} stages (p50 / p95 / total ms, n): " + "; ".join(
+            f"{k} {v['p50']:.3f} / {v['p95']:.3f} / {v['total']:.3f}, {v['n']}" for k, v in rec["stage_ms"].items()))
+        check(rec["init_frame"] is not None and rec["init_frame"] < 10,
+              f"9a {form}: initialized at frame {rec['init_frame']}")
+        check(rec["lost_after_init"] == 0, f"9a {form}: {rec['lost_after_init']} frames lost after initialization")
+        check(rec["ate_frac_of_travel"] is not None and rec["ate_frac_of_travel"] < 0.03,
+              f"9a {form}: ATE {rec['ate_rmse_cm']} cm >= 3% of {rec['travel_m']} m")
+        check(k2 == rec["frames_tracked"] + rec["n_redone"],
+              f"9a {form}: K2 launched {k2} times, expected {rec['frames_tracked']} + {rec['n_redone']}")
+        check(k1 == 0, f"9a {form}: K1 ran on the mono tracking path")
+        out[form] = rec
+    paced = benchmark_slam.main(base + ["--paced"])
+    print(f"[9a] mono pipelined, paced at 25 fps: drop rate {paced['drop_rate']:.4f} "
+          f"({paced['frames_tracked']} frames tracked of {paced['frames']}), {paced['value']:.3f} fps mean on "
+          f"the frames it took, {paced['lost_after_init']} lost after initialization on {name}")
+    out["paced"] = paced
+    return out
+
+
+def phase_mono_profile(name: str) -> dict:
+    """9a: 4 steady pipelined mono frames at Freiburg's camera under
+    torch.profiler (device activity); the Hamming matrices at 4000 features (the
+    initialization's 4000 x 4000 window match and a projection search
+    against LOCAL_POINT_CAP points), timed and with their peak memory; one
+    chained mono program under set_sync_debug_mode("error")."""
+    world, cam, poses = benchmark_slam.mono_sequence("freiburg", 20)
+    imgs = [np.clip(world.render_pose(T), 0, 255).astype(np.uint8) for T in poses[:20]]
+    system = benchmark_slam.mono_system(cam, True, DEV)
+    for k in range(12):
+        system.track_mono(imgs[k], 0.1 * k)
+    tr = system.tracker
+    check(tr.state == tracking.State.OK, f"9a profile run: tracker {tr.state} after 12 frames")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(12, 16):
+        system.track_mono(imgs[k], 0.1 * k)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3 / 4
+    # device activity only: the host-side operator records of ~10^4
+    # launches per frame cost the profiler minutes to summarise
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for k in range(16, 20):
+            system.track_mono(imgs[k], 0.1 * k)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    key, busy_ms = device_ms(events)
+    print(f"[9a] profile, 4 pipelined mono frames: wall {wall_ms:.3f} ms under the profiler, device busy "
+          f"{busy_ms:.3f} ms ({busy_ms / 4:.3f} ms/frame); idle share {1 - busy_ms / wall_ms:.3f} of the "
+          f"profiled wall, {1 - busy_ms / 4 / plain_wall_ms:.3f} of the unprofiled {plain_wall_ms:.3f} "
+          f"ms/frame (frames 12-15)")
+    print(events.table(sort_by=key, row_limit=15))
+
+    feats = [orb.extract(tr._upload_image(imgs[k]), tr.orb_params) for k in (0, 1)]
+    n = feats[0]["xy"].shape[0]
+    cand = torch.from_numpy(np.random.default_rng(6).integers(
+        -2**31, 2**31, (tracking.LOCAL_POINT_CAP, 8)).astype(np.int32)).to(DEV)
+    mem, t = {}, {}
+    for what, fn in (("window", lambda: matcher.match_in_windows(feats[0], feats[1], radius=100.0)),
+                     ("hamming_window", lambda: matcher.hamming_matrix(feats[0]["desc"], feats[1]["desc"])),
+                     ("hamming_projection", lambda: matcher.hamming_matrix(cand, feats[1]["desc"]))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        mem[what] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        t[what] = cuda_ms(fn, 10)
+    share = 2 * t["hamming_projection"] / max(busy_ms / 4, 1e-9)
+    print(f"[9a] Hamming matrices at {n} features: match_in_windows {n} x {n} {t['window']:.3f} ms, peak "
+          f"{mem['window']:.1f} MiB above the live set (hamming_matrix alone {t['hamming_window']:.3f} ms, "
+          f"{mem['hamming_window']:.1f} MiB); a projection search's {tracking.LOCAL_POINT_CAP} x {n} "
+          f"hamming_matrix {t['hamming_projection']:.3f} ms, {mem['hamming_projection']:.1f} MiB; two per "
+          f"tracked frame are {share:.3f} of its device time on {name}")
+
+    (img,) = tr._upload("mono", (imgs[-1],))
+    _, local = tr._local_pack()
+    if tr._chain is None:
+        tr._seed_chain()
+    args = (tr.orb_params, tr._radii(), float(tr.cfg.velocity_smoothing), img, tr.intrinsics, *tr._chain, *local)
+    frame_step.track_frame_mono_chained(*args)          # constants cached
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, result, _ = frame_step.track_frame_mono_chained(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(result["T_cw"]).all()), "chained mono program gave a non-finite pose")
+    print(f"[9a] track_frame_mono_chained under set_sync_debug_mode('error'): no host sync; "
+          f"{int(result['n_inliers'])} inliers")
+    system.flush()
+    return {"busy_ms_per_frame": busy_ms / 4, "hamming_ms": t, "hamming_mib": mem}
+
+
+def sphere_run(scene, pipeline_factory, frames: int = SPHERE_FRAMES, profile_recon: bool = False):
+    """SLAMSystem.track_mono with a MonoObjectPipeline over the sphere
+    scene (Freiburg's ORB: 4000 features, 8 levels); with profile_recon,
+    the first keyframe drain that runs object GN under torch.profiler."""
+    cam_xs = [k * SPHERE_STEP for k in range(frames)]
+
+    def detections(idx):
+        lab = scene.label(cam_xs[min(idx, frames - 1)])
+        if lab is None:
+            return []
+        det = build_mono_detection(lab[1], lab[0], np.linalg.inv(scene.K), min_mask_area=1000.0)
+        return [det] if det is not None else []
+
+    system = SLAMSystem(
+        tracker_cfg=tracking.TrackerConfig(fx=scene.fx, fy=scene.fx, cx=scene.cx, cy=scene.cy,
+                                           width=scene.w, height=scene.h, max_frames_between_kf=3,
+                                           search_radius_motion=40.0 * scene.fx / 500.0),
+        orb_params=orb.ORBParams(n_features=4000, n_levels=8), object_pipeline_factory=pipeline_factory,
+        detection_source=detections, device=DEV)
+    pipeline = system.local_mapper.object_pipeline
+    profiled, drain = {}, system._drain_keyframes
+
+    def profiled_drain():
+        c, new = pipeline.kf_count, len(system.tracker.new_keyframes)
+        recon = any(i >= pipeline.warmup_kfs and i % pipeline.recon_every == 0 for i in range(c + 1, c + new + 1))
+        if not (profile_recon and recon and not profiled):
+            return drain()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            drain()
+            torch.cuda.synchronize()
+        profiled["events"] = prof.key_averages()
+
+    system._drain_keyframes = profiled_drain
+    for k, x in enumerate(cam_xs):
+        system.track_mono(scene.render(x), 0.1 * k)
+    system.flush()
+    torch.cuda.synchronize()
+    return system, cam_xs, profiled.get("events")
+
+
+def phase_mono_objects(name: str) -> dict:
+    """9b: SLAMSystem with MonoObjectPipeline over the sphere scene at
+    Freiburg's camera: the analytic sphere decoder (the object's centre
+    within 0.5 R of the truth after gauge alignment), then phase 4's seeded
+    random full-width DeepSDF (finite objects, K1 launched exactly as the
+    pipeline's GN calls need, the span of each GN call, K1's share of one
+    reconstructing keyframe's drain)."""
+    scene = SphereScene(960, 540, 930.2, 480.0, 270.0)
+    sphere = deepsdf.SphereDecoder(deepsdf.make_sphere_params(code_len=8, device=DEV))
+
+    def sphere_factory(slam_map):
+        return MonoObjectPipeline(slam_map, sphere, gn.GNConfig(code_len=8, k4=0.0, num_iterations=8,
+                                                                max_grad_points=256),
+                                  max_surface_points=128, max_rays=256, voxels_dim=17,
+                                  warmup_kfs=5, recon_every=2)
+
+    system, cam_xs, _ = sphere_run(scene, sphere_factory)
+    kfs = sorted(system.map.keyframes.values(), key=lambda kf: kf.id)
+    lost = sum(1 for _, _, l in system.tracker.trajectory if l)
+    objs = [o for o in system.map.objects.values() if not o.bad and getattr(o, "has_valid_pose", False)]
+    check(system.state == tracking.State.OK and len(kfs) >= 6, f"9b: {system.state}, {len(kfs)} keyframes")
+    check(len(objs) >= 1, "9b: no object survived the GN reconstruction")
+    # the mono gauge: the first keyframe's camera is the world origin, the
+    # map's scale from the known camera step
+    x0, x1 = (cam_xs[int(round(kf.timestamp / 0.1))] for kf in (kfs[0], kfs[-1]))
+    s = np.linalg.norm(kfs[-1].T_wc[:3, 3] - kfs[0].T_wc[:3, 3]) / abs(x1 - x0)
+    obj = max(objs, key=lambda o: len(o.point_ids))
+    err = float(np.linalg.norm(obj.T_wo[:3, 3] / s - (scene.CENTER - [x0, 0, 0])))
+    print(f"[9b] mono objects, sphere decoder, {len(cam_xs)} frames: {lost} lost, {len(kfs)} keyframes, "
+          f"{len(system.map.points)} map points, {len(objs)} reconstructed objects, the largest with "
+          f"{len(obj.point_ids)} member points; centre error {err:.4f} m (limit {0.5 * scene.RADIUS} m) on {name}")
+    check(err < 0.5 * scene.RADIUS, f"9b: object centre {err} m from the truth")
+
+    dec = deepsdf.params_from_jax(canonical_params_np(seed=2), device=DEV)
+    opt = SystemConfig.from_json(FREIBURG_CONFIG).optimizer
+
+    def deepsdf_factory(slam_map):
+        return MonoObjectPipeline(slam_map, dec, opt, voxels_dim=32, warmup_kfs=5, recon_every=2)
+
+    fast_score.fast_score_maps.launches = 0
+    decoder_fused.sdf_and_input_grad.launches = 0
+    system, _, events = sphere_run(scene, deepsdf_factory, profile_recon=True)
+    k1, k2 = decoder_fused.sdf_and_input_grad.launches, fast_score.fast_score_maps.launches
+    pipeline = system.local_mapper.object_pipeline
+    expected = pipeline.expected_k1_launches()
+    objs = [o for o in system.map.objects.values() if not o.bad]
+    print(f"[9b] mono objects, random full-width DeepSDF (freiburg_001.json's optimizer, "
+          f"{opt.num_iterations} GN iterations): {len(objs)} objects, GN calls {pipeline.gn_calls} "
+          f"(batches {pipeline.gn_batches}); K1 launches {k1} (expected {expected}), K2 {k2} "
+          f"({len(system.tracker.trajectory)} frames + {system.tracker.n_redone} re-tracked); each object "
+          f"GN call, ms between CUDA events around its launches: "
+          f"{[round(x, 3) for x in pipeline.gn_device_ms]} on {name}")
+    check(k1 == expected and k1 > 0, f"9b: K1 launched {k1} times, expected {expected} (> 0)")
+    check(k2 == len(system.tracker.trajectory) + system.tracker.n_redone, f"9b: K2 launched {k2} times")
+    for o in objs:
+        check(bool(np.isfinite(o.T_wo).all() and np.isfinite(o.code).all()), f"9b: object {o.id} not finite")
+    check(events is not None, "9b: no reconstructing keyframe drain was profiled")
+    key, busy = device_ms(events)
+    k1_events = [e for e in events if "decoder_fused_kernel" in e.key]
+    k1_ms = device_ms(k1_events)[1] if k1_events else 0.0
+    print(f"[9b] profile of one reconstructing mono keyframe's drain (triangulation, object GN, mesh): "
+          f"device busy {busy:.3f} ms, K1 {k1_ms:.3f} ms ({k1_ms / max(busy, 1e-9):.3f} of it)")
+    print(events.table(sort_by=key, row_limit=15))
+    return {"k1_launches": k1, "k1_share": k1_ms / max(busy, 1e-9), "gn_ms": pipeline.gn_device_ms}
+
+
+def write_mono_fixture(root: str, scene: SphereScene, frames: int) -> str:
+    """A mono sequence in dsp_slam_mono's layout: image_0/*.png (raw,
+    lens-distorted renders of the sphere scene) and labels/*.npz (the
+    sphere's box and mask), with a config from configs/freiburg_001.json
+    naming the labels. Returns the config's path."""
+    from PIL import Image
+
+    os.makedirs(os.path.join(root, "image_0"))
+    for k in range(frames):
+        x = k * SPHERE_STEP
+        Image.fromarray(scene.render(x)).convert("RGB").save(os.path.join(root, "image_0", f"{k:06d}.png"))
+        lab = scene.label(x)
+        if lab is not None:
+            offline.save_labels_npz(os.path.join(root, "labels"), os.path.join(root, "labels_3d"), k,
+                                    np.zeros((0, 7), np.float32), lab[0], lab[1])
+    cfg = SystemConfig.from_json(FREIBURG_CONFIG)
+    cfg = dataclasses.replace(cfg, detection=dataclasses.replace(
+        cfg.detection, path_label_2d=os.path.join(root, "labels")))
+    path = os.path.join(root, "config.json")
+    cfg.to_json(path)
+    return path
+
+
+def phase_mono_cli(tmp: str, name: str):
+    """9c: dsp_slam_mono.main over a 6-frame mono fixture (PNGs, .npz 2D
+    labels, freiburg_001.json's lens) on the card and on the CPU, both with
+    K2's FAST response: the map files parse and trajectory_tum.txt agrees
+    within 1e-3."""
+    cam = SystemConfig.from_json(FREIBURG_CONFIG).camera
+    scene = SphereScene(cam.width, cam.height, cam.fx, cam.cx, cam.cy,
+                        dist=(cam.k1, cam.k2, cam.p1, cam.p2, cam.k3))
+    seq = os.path.join(tmp, "mono_seq")
+    cfg = write_mono_fixture(seq, scene, 6)
+    traj = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(tmp, f"mono_{dev}")
+        t0 = time.perf_counter()
+        with mock.patch.object(orb, "_use_k2", lambda backend, device: True):
+            system = dsp_slam_mono.main(["--sequence_dir", seq, "--config", cfg, "--map_dir", out,
+                                         "--device", dev])
+        wall = time.perf_counter() - t0
+        traj[dev] = np.loadtxt(os.path.join(out, "trajectory_tum.txt")).reshape(-1, 8)
+        pts = np.loadtxt(os.path.join(out, "MapPoints.txt")).reshape(-1, 3)
+        cams = np.loadtxt(os.path.join(out, "Cameras.txt")).reshape(-1, 3, 4)
+        lines = [ln for ln in open(os.path.join(out, "MapObjects.txt")).read().split("\n") if ln.strip()]
+        check(len(lines) % 3 == 0, f"9c: {dev} MapObjects.txt has {len(lines)} lines")
+        for i in range(0, len(lines), 3):
+            int(lines[i])
+            check(len(lines[i + 1].split()) == 12 and len(lines[i + 2].split()) == 64,
+                  f"9c: {dev} MapObjects.txt entry {i // 3} malformed")
+        check(system.state.name == "OK" and len(traj[dev]) >= 4 and len(cams) == len(traj[dev]) and len(pts) > 50,
+              f"9c: {dev} run: {system.state}, {len(traj[dev])} poses, {len(pts)} map points")
+        print(f"[9c] mono CLI on {dev} ({wall:.1f} s): {len(traj[dev])} tracked poses, {len(pts)} map points, "
+              f"{len(lines) // 3} objects")
+    check(traj["cuda"].shape == traj["cpu"].shape, f"9c: {traj['cuda'].shape} vs {traj['cpu'].shape} poses")
+    d = float(np.abs(traj["cuda"] - traj["cpu"]).max())
+    print(f"[9c] trajectory_tum.txt card vs CPU: max |d| {d:.3e} on {name}")
+    check(d <= 1e-3, f"9c: trajectory_tum.txt differs from the CPU run by {d}")
+
+
+def phase_rgbd(name: str) -> int:
+    """9d: SLAMSystem.track_rgbd fused and pipelined over the first 24
+    frames of the mono arm's 40-frame sequence (its view yaw starts at
+    frame 13) with the true depth images (Freiburg's camera, bf = 0.5 fx,
+    the mono arm's 25 px motion search): 0 lost frames, ATE < 3% of travel,
+    one K2 launch per frame."""
+    n = 24
+    world, cam, poses = benchmark_slam.mono_sequence("freiburg", MONO_FRAMES)
+    w, h, fx, cx, cy = cam
+    frames = [(np.clip(world.render_pose(T), 0, 255).astype(np.uint8), world.depth_map_pose(T))
+              for T in poses[:n]]
+    travel = float(np.linalg.norm(np.diff(poses[:n, :3, 3], axis=0), axis=1).sum())
+    launches = 0
+    for pipelined in (False, True):
+        form = "pipelined" if pipelined else "fused"
+        system = SLAMSystem(
+            tracker_cfg=tracking.TrackerConfig(fx=fx, fy=fx, cx=cx, cy=cy, bf=fx * 0.5, width=w, height=h,
+                                               min_init_features=400, max_frames_between_kf=5,
+                                               search_radius_motion=25.0, pipelined=pipelined),
+            orb_params=orb.ORBParams(n_features=4000, n_levels=8), device=DEV)
+        fast_score.fast_score_maps.launches = 0
+        t0 = time.perf_counter()
+        for k, (img, depth) in enumerate(frames):
+            system.track_rgbd(img, depth, 0.1 * k)
+        system.flush()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n * 1e3
+        k2 = fast_score.fast_score_maps.launches
+        launches += k2
+        tr = system.tracker
+        lost = sum(1 for _, _, l in tr.trajectory if l)
+        ate = ate_rmse(trajectory_wc(tr), poses[:n])["rmse"]
+        print(f"[9d] RGB-D {form}: {len(tr.trajectory)} frames, {lost} lost, ATE {ate:.5f} m over {travel:.2f} m, "
+              f"{len(system.map.keyframes)} keyframes, {len(system.map.points)} map points; K2 launches {k2} "
+              f"({tr.n_redone} re-tracked); {wall:.3f} ms per frame (synchronised wall) on {name}")
+        check(len(tr.trajectory) == n and lost == 0, f"9d {form}: {lost} lost frames")
+        check(ate < 0.03 * travel, f"9d {form}: ATE {ate} m >= 3% of {travel} m")
+        check(k2 == n + tr.n_redone, f"9d {form}: K2 launched {k2} times, expected {n} + {tr.n_redone}")
+    return launches
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -926,6 +1412,13 @@ def main():
         phase_mapping_sync_free(slam["system"])
         phase_cli(tmp, name)
 
+        k2_mono = phase_mono_fast(name)
+        mono = phase_mono_tracking(name)
+        mono_prof = phase_mono_profile(name)
+        mono_obj = phase_mono_objects(name)
+        phase_mono_cli(tmp, name)
+        rgbd_launches = phase_rgbd(name)
+
     print(name)
     kernels = [{
         "name": "decoder_fused", "route": "cuda", "source": SRC, "replaces": REPLACES,
@@ -942,6 +1435,8 @@ def main():
         "tf32_hgmma_instructions": sum(c["tf32"] for c in k1["tensor"].values()),
         "gn_ms_per_object": ms["kernel"], "gn_plain_ms_per_object": ms["plain"],
         "slam_launches": slam["k1_launches"], "slam_keyframe_drain_share": slam["k1_share"],
+        "mono_launches": mono_obj["k1_launches"], "mono_keyframe_drain_share": mono_obj["k1_share"],
+        "mono_gn_ms": mono_obj["gn_ms"],
     }, {
         "name": "fast_score", "route": "cuda", "source": K2_SRC, "replaces": K2_REPLACES,
         "launches": trk["launches"], "max_abs_err": k2["max_abs_err"],
@@ -954,6 +1449,13 @@ def main():
         "instructions_per_pixel": k2["instructions_per_pixel"],
         "tracking_ms_per_frame": {f: trk[f]["median_ms"] for f in ("non-pipelined", "pipelined")},
         "slam_launches": slam["k2_launches"],
+        "mono_launches": mono["launches"], "rgbd_launches": rgbd_launches,
+        "mono_frame_ms": k2_mono["ms"], "mono_frame_device_ms": k2_mono["device_ms"],
+        "mono_frame_plain_ms": k2_mono["plain_ms"], "mono_frame_bound_ms": k2_mono["bound_ms"],
+        "mono_max_abs_err": k2_mono["max_abs_err"],
+        "mono_fps": {f: {"mean": mono[f]["value"], "median": mono[f]["median_fps"]}
+                     for f in ("pipelined", "non-pipelined")},
+        "mono_busy_ms_per_frame": mono_prof["busy_ms_per_frame"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -322,6 +322,10 @@ class LayeredWorld:
             return self._compose_pose(T)[0]
         return self._compose_pose(T_wc)[0]
 
+    def depth_map_pose(self, T_wc: np.ndarray) -> np.ndarray:
+        """Ground-truth left-view depth from a full SE(3) pose."""
+        return self._compose_pose(T_wc)[1]
+
 
 def pose_yaw(x: float, z: float, yaw: float, y: float = 0.0) -> np.ndarray:
     """Camera-to-world SE(3) at position (x, y, z) yawed about the world
@@ -357,6 +361,28 @@ def forward_turn_trajectory(
             yaw += rate
         x += step * np.sin(yaw)
         z += step * np.cos(yaw)
+    return poses
+
+
+def strafe_yaw_trajectory(
+    n_frames: int,
+    step: float = 0.3,
+    yaw_start: int = 8,
+    yaw_frames: int = 16,
+    total_yaw: float = np.radians(25.0),
+) -> np.ndarray:
+    """Lateral dolly along +x (the classic mono fixture — parallax-rich,
+    so monocular initialization works) whose VIEW yaw ramps through
+    `total_yaw` mid-run. Exercises the rotational tracking path without
+    the forward-motion degeneracy of mono initialization. Returns
+    (n_frames, 4, 4) camera-to-world poses."""
+    poses = np.empty((n_frames, 4, 4))
+    yaw = 0.0
+    rate = total_yaw / max(yaw_frames, 1)
+    for k in range(n_frames):
+        poses[k] = pose_yaw(k * step, 0.0, yaw)
+        if yaw_start <= k < yaw_start + yaw_frames:
+            yaw += rate
     return poses
 
 

@@ -1,7 +1,8 @@
 """Batched ORB descriptor matching.
 
 Port of dspslam_tpu/frontend/matcher.py: one (N, M) Hamming-distance
-matrix (XOR + population count) over which the search modes are candidate
+matrix (the JAX package's XOR + population count, computed as a matrix
+product of descriptor bits) over which the search modes are candidate
 masks, best / second-best ratio and mutual checks, and the 30-bin
 rotation-consistency histogram. Descriptors are (N, 8) int32, the bit view
 of uint32 words. Thresholds TH_HIGH=100 / TH_LOW=50 and the 0.9 ratio
@@ -23,19 +24,26 @@ HISTO_BINS = 30
 BIG = 1 << 20
 
 
-def _popcount8(x: torch.Tensor) -> torch.Tensor:
-    """Set bits of each uint8 (SWAR; unsigned, so shifts are logical)."""
-    x = x - ((x >> 1) & 0x55)
-    x = (x & 0x33) + ((x >> 2) & 0x33)
-    return (x + (x >> 4)) & 0x0F
+def _bits(desc: torch.Tensor) -> torch.Tensor:
+    """(N, 8) int32 descriptor words -> (N, 256) f32 bits (bit i of word j
+    at column 32 j + i)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=desc.device)
+    return ((desc[:, :, None] >> shifts) & 1).reshape(desc.shape[0], 256).to(torch.float32)
 
 
 def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """(N, 8) x (M, 8) packed int32 descriptors -> (N, M) int32 distances."""
-    a = desc_a.contiguous().view(torch.uint8)             # (N, 32)
-    b = desc_b.contiguous().view(torch.uint8)
-    x = torch.bitwise_xor(a[:, None, :], b[None, :, :])
-    return torch.sum(_popcount8(x), dim=-1, dtype=torch.int32)
+    """(N, 8) x (M, 8) packed int32 descriptors -> (N, M) int32 distances.
+
+    popcount(a XOR b) = |a| + |b| - 2 a.b over the 256 bits: one f32 matrix
+    product of 0/1 bit vectors, whose entries are integers <= 256 and so
+    exact in any summation order (TF32 included). It equals the JAX
+    package's XOR + population count, without the (N, M, 32) byte
+    intermediate that takes 512 MB at 4000 x 4000."""
+    a, b = _bits(desc_a), _bits(desc_b)
+    d = (a @ b.t()).mul_(-2.0)              # in place: one (N, M) f32 buffer
+    d += a.sum(1)[:, None]
+    d += b.sum(1)[None, :]
+    return d.to(torch.int32)
 
 
 def masked_match(dist: torch.Tensor, cand_mask: torch.Tensor, max_dist: int = TH_LOW,
@@ -86,6 +94,19 @@ def match_features(feats_a: dict, feats_b: dict, max_dist: int = TH_LOW, ratio: 
     Returns (idx (N,) int32 into feats_b, -1 for unmatched; dist (N,))."""
     dist = hamming_matrix(feats_a["desc"], feats_b["desc"])
     cand = (feats_a["valid"][:, None] > 0) & (feats_b["valid"][None, :] > 0)
+    idx, d = masked_match(dist, cand, max_dist, ratio, mutual=True)
+    return rotation_consistency(feats_a["angle"], feats_b["angle"], idx), d
+
+
+def match_in_windows(feats_a: dict, feats_b: dict, radius: float, max_dist: int = TH_LOW,
+                     ratio: float = 0.9):
+    """Window-constrained matching (monocular initialization,
+    ORBmatcher.cc:405-520): candidates within `radius` px and one pyramid
+    level, mutual best, ratio and rotation checks. Returns (idx (N,) int32
+    into feats_b, -1 for unmatched; dist (N,))."""
+    dist = hamming_matrix(feats_a["desc"], feats_b["desc"])
+    cand = window_mask(feats_a["xy"], feats_b["xy"], radius, feats_a["valid"], feats_b["valid"],
+                       feats_a["level"], feats_b["level"])
     idx, d = masked_match(dist, cand, max_dist, ratio, mutual=True)
     return rotation_consistency(feats_a["angle"], feats_b["angle"], idx), d
 

@@ -15,9 +15,12 @@ blur -> steered BRIEF) with fixed shapes and validity masks:
 * non-max suppression is a 3x3 local-maximum test, then top-k per grid
   cell and a global top-k, with ties broken toward the lower index as
   `jax.lax.top_k` breaks them (stable descending sorts);
-* orientation and BRIEF gather patches / samples for the selected
-  keypoints only; descriptors are (N, 8) int32, the bit view of the JAX
-  package's uint32 words.
+* orientation gathers 31 x 31 patches for the selected keypoints
+  (`orient_mode="patch"`) or reads dense moment maps of one 2-channel
+  31 x 31 cross-correlation (`"conv"`); BRIEF samples the blurred level in
+  one global gather (`brief_mode="auto"` / `"global"`) or from per-keypoint
+  39 x 39 patches (`"patch"`); descriptors are (N, 8) int32, the bit view of
+  the JAX package's uint32 words.
 
 Every constant a level needs (resize weights, border mask, BRIEF
 pattern, moment weights) is cached on its device after the first call, so
@@ -60,10 +63,10 @@ class ORBParams:
     # tensor, its plain version on a CPU tensor), "xla" the arc-min path,
     # "auto" K2 on the card and the arc-min path on the CPU
     fast_backend: str = "auto"
-    # "patch" gathers 31x31 patches; "conv" moment maps are not ported
+    # "patch" gathers 31x31 patches; "conv" reads dense moment maps
     orient_mode: str = "patch"
-    # "auto" and "global": one global sample gather; "patch" is not ported
-    # and "onehot" (a TPU gather workaround) is not carried over
+    # "auto" and "global": one global sample gather; "patch": per-keypoint
+    # patches. "onehot" (a TPU gather workaround) is not carried over
     brief_mode: str = "auto"
 
     def features_per_level(self) -> list[int]:
@@ -264,6 +267,18 @@ def orientations(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     return torch.atan2(m01, m10)                          # (K,) radians
 
 
+def orientations_conv(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid angles from dense moment maps: one 2-channel
+    31x31 cross-correlation (zero padding) gives m10 / m01 at every pixel,
+    and each keypoint reads its two. The same angles as `orientations` for
+    keypoints >= HALF_PATCH from the border (every valid one)."""
+    k = _on_device("moments", img.device, _moment_weights).to(img.dtype)
+    maps = torch.nn.functional.conv2d(img[None, None], k[:, None], padding=HALF_PATCH)[0]
+    xi = xy[:, 0].to(torch.int64)
+    yi = xy[:, 1].to(torch.int64)
+    return torch.atan2(maps[1, yi, xi], maps[0, yi, xi])
+
+
 def gaussian_blur7(img: torch.Tensor, sigma: float = 2.0) -> torch.Tensor:
     """Separable 7x7 Gaussian as shifted adds (wraparound), in the JAX
     package's order of operations."""
@@ -310,6 +325,31 @@ def brief_descriptors(img_blur: torch.Tensor, xy: torch.Tensor, angles: torch.Te
     return _pack_brief_bits(img_blur[gy, gx])
 
 
+R_BRIEF = 19  # patch radius covering any rotated offset (13 * sqrt(2) < 19)
+
+
+def brief_descriptors_patch(img_blur: torch.Tensor, xy: torch.Tensor, angles: torch.Tensor,
+                            pattern: torch.Tensor) -> torch.Tensor:
+    """Steered BRIEF from per-keypoint 39x39 blurred patches and
+    patch-local sample indices; bit-identical to `brief_descriptors` for
+    keypoints >= EDGE_MARGIN from the border (every valid one), whose
+    rotated offsets never leave the patch."""
+    H, W = img_blur.shape
+    S = 2 * R_BRIEF + 1
+    ar = torch.arange(S, device=img_blur.device)
+    y0 = torch.clamp(xy[:, 1].to(torch.int64) - R_BRIEF, 0, H - S)
+    x0 = torch.clamp(xy[:, 0].to(torch.int64) - R_BRIEF, 0, W - S)
+    patches = img_blur[(y0[:, None] + ar)[:, :, None], (x0[:, None] + ar)[:, None, :]]
+    fx, fy = _rotated_offsets(xy, angles, pattern)
+    gx = torch.clamp(torch.round(fx), 0, W - 1).to(torch.int64)
+    gy = torch.clamp(torch.round(fy), 0, H - 1).to(torch.int64)
+    lx = torch.clamp(gx - x0[:, None, None], 0, S - 1)
+    ly = torch.clamp(gy - y0[:, None, None], 0, S - 1)
+    li = (ly * S + lx).reshape(xy.shape[0], -1)            # (K, 512)
+    vals = torch.take_along_dim(patches.reshape(xy.shape[0], S * S), li, dim=1)
+    return _pack_brief_bits(vals.reshape(xy.shape[0], -1, 2))
+
+
 # ---------------------------------------------------------------------------
 # Full extraction
 
@@ -324,10 +364,15 @@ def _use_k2(backend: str, device: torch.device) -> bool:
     raise ValueError(f"unknown fast_backend {backend!r}")
 
 
+_ORIENT = {"patch": orientations, "conv": orientations_conv}
+_BRIEF = {"auto": brief_descriptors, "global": brief_descriptors,
+          "patch": brief_descriptors_patch}
+
+
 def _check_modes(params: ORBParams):
-    if params.orient_mode != "patch":
+    if params.orient_mode not in _ORIENT:
         raise NotImplementedError(f"orient_mode={params.orient_mode!r} is not ported")
-    if params.brief_mode not in ("auto", "global"):
+    if params.brief_mode not in _BRIEF:
         raise NotImplementedError(f"brief_mode={params.brief_mode!r} is not ported")
 
 
@@ -368,8 +413,8 @@ def extract_level(level_img: torch.Tensor, level: int, params: ORBParams,
     budget = params.features_per_level()[level]
     scale = params.level_scales()[level]
     xy, resp, valid = select_keypoints(score, budget, params.cell_size, params.per_cell)
-    ang = orientations(level_img, xy)
-    desc = brief_descriptors(gaussian_blur7(level_img), xy, ang, pattern)
+    ang = _ORIENT[params.orient_mode](level_img, xy)
+    desc = _BRIEF[params.brief_mode](gaussian_blur7(level_img), xy, ang, pattern)
     return {
         "xy": xy * scale,
         "response": resp,

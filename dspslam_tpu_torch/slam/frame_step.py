@@ -1,16 +1,18 @@
-"""Fused per-frame stereo tracking program.
+"""Fused per-frame tracking programs: stereo, monocular and RGB-D.
 
-Port of the stereo programs of dspslam_tpu/slam/frame_step.py: one call
-runs the whole per-frame device pipeline — stereo ORB extraction (kernel
-K2 at every pyramid level on the card), row-matched depth, the motion
-stage (projection matching + pose GN against the last frame's points),
-then the local-map stage — and the caller fetches one result per frame.
+Port of dspslam_tpu/slam/frame_step.py: one call runs the whole per-frame
+device pipeline — ORB extraction (kernel K2 for every pyramid level of the
+frame in one launch on the card), the frame's depth (row-matched stereo,
+the RGB-D depth image, or none for mono: u_right = -1 masks the stereo
+residual), the motion stage (projection matching + pose GN against the
+last frame's points), then the local-map stage — and the caller fetches
+one result per frame.
 
 The program never syncs with the host: no `.item()`, no boolean-mask
 indexing, no Python branch on a tensor, fixed loop counts, and every
 constant it needs is cached on the device. So in eager PyTorch the host
 can queue frame k+1 before frame k's results are back
-(`track_frame_stereo_chained`, the pipelined form).
+(the `*_chained` programs, the pipelined forms).
 
 Matching conflicts (several map points matched to one keypoint) are
 resolved by a scatter-min on descriptor distance.
@@ -168,3 +170,90 @@ def _chain_epilogue(vel_alpha, T_cw_prev, vel_prev, result,
     chain = (T2, vel_new, local_pos, local_desc, local_level, local_dist, result["inlier"])
     return result, chain
 
+
+
+def _no_right(feats: dict) -> torch.Tensor:
+    """u_right = -1 for every keypoint: the monocular form of the stages."""
+    return torch.full(feats["valid"].shape, -1.0, dtype=torch.float32, device=feats["valid"].device)
+
+
+def track_frame_mono(orb_params: orb.ORBParams, radii: tuple, img, intrinsics, T_pred,
+                     last_pos, last_desc, last_level, last_dist, last_valid,
+                     local_pos, local_desc, local_level, local_dist, local_valid):
+    """One monocular frame: returns (feats, result dict). u_right = -1
+    drops the stereo residual from the pose GN. Needs a distortion-free
+    camera: the tracker undistorts keypoints on the host, in its modular
+    path, for lens-distorted ones."""
+    feats = orb.extract(img, orb_params)
+    result = _match_stages(
+        orb_params, radii, intrinsics, feats, _no_right(feats), T_pred,
+        last_pos, last_desc, last_level, last_dist, last_valid,
+        local_pos, local_desc, local_level, local_dist, local_valid,
+    )
+    return feats, result
+
+
+def track_frame_mono_chained(orb_params: orb.ORBParams, radii: tuple, vel_alpha: float, img,
+                             intrinsics, T_cw_prev, vel_prev,
+                             last_pos, last_desc, last_level, last_dist, last_valid,
+                             local_pos, local_desc, local_level, local_dist, local_valid):
+    """Pipelined monocular form (see track_frame_stereo_chained): returns
+    (feats, result, chain)."""
+    T_pred = vel_prev @ T_cw_prev
+    feats, result = track_frame_mono(
+        orb_params, radii, img, intrinsics, T_pred,
+        last_pos, last_desc, last_level, last_dist, last_valid,
+        local_pos, local_desc, local_level, local_dist, local_valid,
+    )
+    result, chain = _chain_epilogue(
+        vel_alpha, T_cw_prev, vel_prev, result, local_pos, local_desc, local_level, local_dist,
+    )
+    return feats, result, chain
+
+
+def _rgbd_stereo_from_depth(feats: dict, depth_img: torch.Tensor, bf: float) -> dict:
+    """Per-keypoint depth (nearest pixel of the sensor's depth image) and
+    the virtual right-view coordinate (Frame::ComputeStereoFromRGBD)."""
+    H, W = depth_img.shape
+    xy = feats["xy"]
+    xs = torch.clamp(torch.round(xy[:, 0]).to(torch.int64), 0, W - 1)
+    ys = torch.clamp(torch.round(xy[:, 1]).to(torch.int64), 0, H - 1)
+    d = depth_img[ys, xs].to(torch.float32)
+    live = (feats["valid"] > 0) & (d > 0)
+    d = torch.where(live, d, -1.0)
+    u_right = torch.where(live, xy[:, 0] - bf / torch.clamp(d, min=1e-6), -1.0)
+    return {"depth": d, "u_right": u_right}
+
+
+def track_frame_rgbd(orb_params: orb.ORBParams, radii: tuple, img, depth_img, bf, intrinsics,
+                     T_pred, last_pos, last_desc, last_level, last_dist, last_valid,
+                     local_pos, local_desc, local_level, local_dist, local_valid):
+    """One RGB-D frame: extraction, the depth lookup and the motion / local
+    stages; the virtual u_right feeds the same stereo residual as true
+    stereo. Returns (feats, depth_out, result). Distortion-free cameras."""
+    feats = orb.extract(img, orb_params)
+    st = _rgbd_stereo_from_depth(feats, depth_img, bf)
+    result = _match_stages(
+        orb_params, radii, intrinsics, feats, st["u_right"], T_pred,
+        last_pos, last_desc, last_level, last_dist, last_valid,
+        local_pos, local_desc, local_level, local_dist, local_valid,
+    )
+    return feats, st, result
+
+
+def track_frame_rgbd_chained(orb_params: orb.ORBParams, radii: tuple, vel_alpha: float, img,
+                             depth_img, bf, intrinsics, T_cw_prev, vel_prev,
+                             last_pos, last_desc, last_level, last_dist, last_valid,
+                             local_pos, local_desc, local_level, local_dist, local_valid):
+    """Pipelined RGB-D form (see track_frame_stereo_chained): returns
+    (feats, depth_out, result, chain)."""
+    T_pred = vel_prev @ T_cw_prev
+    feats, st, result = track_frame_rgbd(
+        orb_params, radii, img, depth_img, bf, intrinsics, T_pred,
+        last_pos, last_desc, last_level, last_dist, last_valid,
+        local_pos, local_desc, local_level, local_dist, local_valid,
+    )
+    result, chain = _chain_epilogue(
+        vel_alpha, T_cw_prev, vel_prev, result, local_pos, local_desc, local_level, local_dist,
+    )
+    return feats, st, result, chain

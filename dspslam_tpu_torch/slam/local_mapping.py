@@ -74,8 +74,9 @@ class LocalMapperConfig:
     async_ba: bool = True
     # Spread the keyframe over later frames: the keyframe frame only
     # dispatches triangulation + fusion; poll() applies it and dispatches
-    # BA, which applies at a later poll. (The JAX package also forces it off
-    # for its mono object pipeline, which votes with fresh map points: slice 4.)
+    # BA, which applies at a later poll. Ignored when the object pipeline
+    # votes with map points (`uses_map_points`, the mono pipeline): its
+    # association needs the keyframe's fresh points.
     async_keyframe: bool = False
     # Defer the object stage's apply to a poll (only with async_keyframe).
     async_objects: bool = False
@@ -138,11 +139,18 @@ class LocalMapper:
             self.flush()             # drain anything from the previous KF
         self.map.update_covisibility(kf)
         self._cull_points(kf)
-        defer = self.cfg.async_keyframe
+        needs_fresh_points = getattr(self.object_pipeline, "uses_map_points", False)
+        defer = self.cfg.async_keyframe and not needs_fresh_points
         tri_sync = None
         with self._span("kf_tri_dispatch"):
             if defer:
                 self._pending_tri = self._dispatch_triangulate(kf, triangulate)
+            elif needs_fresh_points:
+                # mono association votes with map points: the keyframe's
+                # triangulation and fusion land before the object stage
+                pending = self._dispatch_triangulate(kf, triangulate)
+                if pending is not None:
+                    self._apply_triangulate(pending)
             else:
                 tri_sync = self._dispatch_triangulate(kf, triangulate)
         obj_pending = None
@@ -208,9 +216,10 @@ class LocalMapper:
             with self._span("ba_apply"):
                 self.apply_pending_ba()
             return
-        # idle poll: finalize one deferred mesh
+        # idle poll: finalize one deferred mesh (the mono pipeline meshes
+        # synchronously and defers none)
         pipeline = self.object_pipeline
-        if pipeline is not None and pipeline._pending_meshes and pipeline.meshes_ready():
+        if getattr(pipeline, "_pending_meshes", None) and pipeline.meshes_ready():
             with self._span("mesh_collect"):
                 pipeline.collect_meshes(limit=1)
 
@@ -245,7 +254,7 @@ class LocalMapper:
             if not kf.bad:
                 self._pending_ba = self.dispatch_bundle_adjust(kf)
         self.apply_pending_ba()
-        if self.object_pipeline is not None:
+        if getattr(self.object_pipeline, "_pending_meshes", None):
             self.object_pipeline.collect_meshes()
 
     # ------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Import hygiene of the PyTorch port: no module of `dspslam_tpu_torch`
-(nor `chip_smoke.py`) imports JAX or the JAX package, checked on the
+(nor `chip_smoke.py`) imports JAX, the JAX package or OpenCV, checked on the
 source's syntax tree so that a lazy import inside a function counts too."""
 
 import ast
@@ -8,7 +8,8 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "dspslam_tpu")
+# the card's machine has no OpenCV either
+FORBIDDEN = ("jax", "jaxlib", "dspslam_tpu", "cv2")
 
 
 def _sources():
@@ -36,6 +37,9 @@ def test_port_has_sources():
     assert {
         "keyframe_step.py", "ba.py", "local_mapping.py", "association.py", "pipeline.py",
         "system.py", "kitti.py", "dsp_slam.py", "benchmark_slam.py",
+    } <= names
+    assert {
+        "initializer.py", "cuboid.py", "mono.py", "mono_pipeline.py", "dsp_slam_mono.py",
     } <= names
 
 

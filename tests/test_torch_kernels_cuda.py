@@ -101,11 +101,19 @@ def test_k2_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["kitti_frame", "odd_shapes"])
+@pytest.mark.parametrize("which", ["kitti_frame", "freiburg_mono_frame", "odd_shapes"])
 def test_k2_multi_map_launch_exact(cuda, which):
     """One launch for all maps: the 16 levels of a KITTI-shaped stereo frame
-    (integer level 0, resized levels), or mixed odd shapes."""
-    if which == "kitti_frame":
+    or the 8 levels of a Freiburg-shaped mono / RGB-D frame (960 x 540 down
+    to 151 x 268 at scale factor 1.2; integer level 0, resized levels), or
+    mixed odd shapes."""
+    if which == "freiburg_mono_frame":
+        shapes = orb.level_shapes(orb.ORBParams(n_features=4000), 540, 960)
+        base = torch.from_numpy(blob_images(1, 540, 960, seed=2)[0]).to(cuda)
+        maps = [base if l == 0 else orb.resize(base, h, w).contiguous()
+                for l, (h, w) in enumerate(shapes)]
+        assert len(maps) == 8 and tuple(maps[-1].shape) == (151, 268)
+    elif which == "kitti_frame":
         shapes = orb.level_shapes(orb.ORBParams(), 376, 1241)
         imgs = []
         for seed in (0, 1):

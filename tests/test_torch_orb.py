@@ -225,8 +225,10 @@ def test_extract_stereo_keeps_jax_level0_parity(frame):
 
 
 def test_unported_modes_raise(frame):
+    """"onehot" (a TPU gather workaround) is not carried over; neither mode
+    takes a value outside the ported set."""
     with pytest.raises(NotImplementedError, match="orient_mode"):
-        torb.extract(_t(frame), torb.ORBParams(n_levels=1, orient_mode="conv"))
+        torb.extract(_t(frame), torb.ORBParams(n_levels=1, orient_mode="onehot"))
     with pytest.raises(NotImplementedError, match="brief_mode"):
         torb.extract(_t(frame), torb.ORBParams(n_levels=1, brief_mode="onehot"))
 
