@@ -1,7 +1,8 @@
 """Smoke test of the PyTorch port on one CUDA card: builds kernels K1 and K2
 from the repository's sources, checks each against its plain PyTorch
-version, drives single-frame object reconstruction, stereo tracking and
-stereo object SLAM through their entry points, and times them.
+version, drives single-frame object reconstruction, stereo tracking,
+object SLAM in stereo, mono and RGB-D, and place recognition with loop
+closing through their entry points, and times them.
 
     python3 chip_smoke.py
 
@@ -91,9 +92,35 @@ Phases (any failure exits non-zero, and no result line is printed):
      d. `SLAMSystem.track_rgbd`, fused and pipelined, over 24 frames of 9a's
         sequence with its rendered depth images: 0 lost frames, ATE < 3% of
         travel, one K2 launch per frame.
-The last lines are a JSON summary of the kernels (K1's and K2's
-`slam_launches` count phase 8b, their `mono_launches` phases 9b and 9a)
-and {"ok": true, "device": {...}}.
+ 10. place recognition, relocalization and loop closing (slice 5) through
+     their entry points:
+     a. `apps.benchmark_slam.main(["--long_loop"])`: 201 keyframes of the
+        fabricated street loop, a vocabulary trained in-process: 1 loop
+        closed, ATE after <= 10% of before (printed beside the JAX
+        package's TPU mark); the essential-graph and global-BA solves timed
+        with CUDA events around their launches; one `_dispatch_global_ba`
+        and one `optimize_pose_graph` at the run's shapes under
+        set_sync_debug_mode("error");
+     b. `SLAMSystem.track_stereo` at KITTI 00-02's settings with
+        `attach_vocabulary` (trained on frames 0, 5, 10) over phase 7's turn
+        with frames 12-14 blank: LOST there, relocalized within 2 frames
+        after, none lost after that, ATE < 3% of travel, one K2 launch per
+        frame;
+     c. 8b's system with `enable_loop_closing`: 0 loops on a sequence with
+        no revisit, K1 and K2 counted, each `insert_keyframe` timed around
+        the call, the keyframe drains beside 8b's;
+     d. the 1000-keyframe essential graph of tests/test_pose_graph_scale.py
+        (its slow test): one `optimize_pose_graph_cg` solve at 1024
+        vertices, timed, with its CG iterations;
+     e. `apps.dsp_slam.main --vocabulary --save_state` over mini-KITTI,
+        `load_state` and 3 more frames relocalized in the loaded map, then
+        `apps.extract_map_objects.main` on the card and on the CPU: the same
+        vertex and face counts, every vertex within 1e-4 of the other
+        mesh's nearest (the host mesher's weld may order them differently).
+The last lines are a JSON summary of slice 5's numbers, the card, a JSON
+summary of the kernels (K1's and K2's `slam_launches` count phase 8b,
+their `mono_launches` phases 9b and 9a, `loop_slam_launches` /
+`loop_launches` phase 10) and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -111,13 +138,17 @@ from unittest import mock
 
 import numpy as np
 import torch
+from scipy.spatial import cKDTree
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
 
-from dspslam_tpu_torch.apps import benchmark_slam, dsp_slam, dsp_slam_mono, reconstruct_frame  # noqa: E402
-from dspslam_tpu_torch.backend import ba  # noqa: E402
+from dspslam_tpu_torch.apps import (  # noqa: E402
+    benchmark_slam, dsp_slam, dsp_slam_mono, extract_map_objects, reconstruct_frame,
+)
+from dspslam_tpu_torch.backend import ba, pose_graph  # noqa: E402
 from dspslam_tpu_torch.config import SystemConfig  # noqa: E402
+from dspslam_tpu_torch.datasets.kitti import KITTISequence  # noqa: E402
 from dspslam_tpu_torch.datasets.mono import build_mono_detection  # noqa: E402
 from dspslam_tpu_torch.datasets.synthetic import (  # noqa: E402
     blob_images, kitti_turn_sequence, render_stereo_u8,
@@ -127,8 +158,11 @@ from dspslam_tpu_torch.frontend import matcher, orb, undistort  # noqa: E402
 from dspslam_tpu_torch.kernels import _nvcc, decoder_fused, fast_score  # noqa: E402
 from dspslam_tpu_torch.models import deepsdf  # noqa: E402
 from dspslam_tpu_torch.objects.mono_pipeline import MonoObjectPipeline  # noqa: E402
+from dspslam_tpu_torch.place import loop_closing  # noqa: E402
+from dspslam_tpu_torch.place.vocabulary import Vocabulary  # noqa: E402
 from dspslam_tpu_torch.shape import gn  # noqa: E402
-from dspslam_tpu_torch.slam import frame_step, keyframe_step, tracking  # noqa: E402
+from dspslam_tpu_torch.slam import frame_step, keyframe_step, state_io, tracking  # noqa: E402
+from dspslam_tpu_torch.slam import map as slam_map_mod  # noqa: E402
 from dspslam_tpu_torch.slam.system import SLAMSystem  # noqa: E402
 from dspslam_tpu_torch.utils.evaluation import ate_rmse  # noqa: E402
 from dspslam_tpu_torch.utils.timing import StageTimer  # noqa: E402
@@ -831,14 +865,19 @@ def phase_slam_k1(system_cfg, exp_dir: str, images, poses, name: str) -> dict:
     return {"k1_launches": k1, "k2_launches": k2, "system": system, "k1_share": k1_ms / max(busy, 1e-9)}
 
 
-def phase_cli(tmp: str, name: str):
-    """8c: dsp_slam.main over the mini-KITTI fixture (PNG pairs, velodyne,
-    .lbl labels) on the card and on the CPU, both with K2's FAST response."""
+def mini_kitti_config(tmp: str) -> str:
     with open(os.path.join(MINI_KITTI, "config.template.json")) as f:
         text = f.read().replace("{SEQ}", os.path.abspath(MINI_KITTI))
     cfg = os.path.join(tmp, "mini_kitti.json")
     with open(cfg, "w") as f:
         f.write(text)
+    return cfg
+
+
+def phase_cli(tmp: str, name: str):
+    """8c: dsp_slam.main over the mini-KITTI fixture (PNG pairs, velodyne,
+    .lbl labels) on the card and on the CPU, both with K2's FAST response."""
+    cfg = mini_kitti_config(tmp)
     cams = {}
     for dev in ("cuda", "cpu"):
         out = os.path.join(tmp, f"mini_{dev}")
@@ -1375,6 +1414,370 @@ def phase_rgbd(name: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: slice 5 (place recognition, relocalization, loop closing,
+# checkpoints, mesh export)
+
+# the JAX package's long-loop record on the TPU (BENCH_r04.json): ATE before
+# and after the loop correction, cm. An accuracy mark, not a speed claim.
+JAX_TPU_LONG_LOOP_CM = (115.61, 6.21)
+RELOC_WITHIN = 2         # frames after the blackout by which 10b must relocalize
+BLACKOUT = range(12, 15)
+
+
+def events_ms(spans) -> list:
+    """ms between each (start, stop) CUDA event pair (after a synchronize)."""
+    return [a.elapsed_time(b) for a, b in spans]
+
+
+def around_launches(spans: list, fn):
+    """`fn` with a CUDA event recorded before and after each call: their
+    span is the device time of the call's launches plus the device's waits
+    for them."""
+    def run(*args, **kw):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kw)
+        stop.record()
+        spans.append((start, stop))
+        return out
+    return run
+
+
+def vocabulary_from(imgs, params, branching: int, levels: int) -> Vocabulary:
+    """A vocabulary trained in-process on the ORB descriptors of `imgs`."""
+    descs = []
+    for img in imgs:
+        f = orb.extract(torch.from_numpy(np.ascontiguousarray(img)).to(DEV), params)
+        descs.append(f["desc"].cpu().numpy().view(np.uint32)[f["valid"].cpu().numpy() > 0])
+    return Vocabulary.train(np.concatenate(descs), branching=branching, levels=levels, seed=0, device=DEV)
+
+
+def phase_long_loop(name: str) -> dict:
+    """10a: benchmark_slam --long_loop (201 keyframes, one loop, a vocabulary
+    trained in-process) on the card; the essential-graph and global-BA
+    solves timed with CUDA events around their launches; then one
+    `_dispatch_global_ba` and one `optimize_pose_graph` at the run's shapes
+    under set_sync_debug_mode("error")."""
+    spans = {"pose_graph": [], "gba": []}
+    seen = {}
+    dispatch = loop_closing.LoopCloser._dispatch_global_ba
+    solve = pose_graph.optimize_pose_graph
+
+    def capture_dispatch(self, kf, loop_kf):
+        seen["gba"] = (self, kf, loop_kf)
+        return dispatch(self, kf, loop_kf)
+
+    def capture_solve(*args, **kw):
+        seen["pose_graph"] = (args, kw)
+        return solve(*args, **kw)
+
+    fast_score.fast_score_maps.launches = 0
+    decoder_fused.sdf_and_input_grad.launches = 0
+    with mock.patch.object(loop_closing.LoopCloser, "_dispatch_global_ba", capture_dispatch), \
+            mock.patch.object(pose_graph, "optimize_pose_graph", around_launches(spans["pose_graph"], capture_solve)), \
+            mock.patch.object(ba, "bundle_adjust", around_launches(spans["gba"], ba.bundle_adjust)):
+        rec = benchmark_slam.main(["--long_loop"])
+    torch.cuda.synchronize()
+    k1, k2 = decoder_fused.sdf_and_input_grad.launches, fast_score.fast_score_maps.launches
+    pg_ms, gba_ms = events_ms(spans["pose_graph"]), events_ms(spans["gba"])
+    before, after = rec["ate_before_loop_cm"], rec["ate_after_loop_cm"]
+    print(f"[10a] benchmark_slam --long_loop: {rec['loop_kfs']} keyframes, loops closed "
+          f"{rec['loops_closed']}, ATE {before:.4f} -> {after:.4f} cm (the JAX package on the TPU, "
+          f"BENCH_r04: {JAX_TPU_LONG_LOOP_CM[0]} -> {JAX_TPU_LONG_LOOP_CM[1]} cm), loop wall "
+          f"{rec['loop_wall_s']:.3f} s; essential-graph solves {[round(x, 3) for x in pg_ms]} ms, "
+          f"global BA {[round(x, 3) for x in gba_ms]} ms between CUDA events around their launches; "
+          f"K1 {k1}, K2 {k2} launches on {name}")
+    check(rec["loops_closed"] == 1, f"10a: {rec['loops_closed']} loops closed, expected 1")
+    check(after <= 0.1 * before, f"10a: ATE after {after} cm > 10% of before {before} cm")
+    check(len(pg_ms) >= 1 and len(gba_ms) == 1, f"10a: {len(pg_ms)} pose-graph and {len(gba_ms)} GBA solves")
+
+    closer, kf, loop_kf = seen["gba"]
+    args, kw = seen["pose_graph"]
+    solve(*args, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = dispatch(closer, kf, loop_kf)
+        out = solve(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    res = tracking._host_result(pending["host"], pending["event"])["out"]
+    check(bool(np.isfinite(res["kf_poses"]).all() and torch.isfinite(out).all()),
+          "10a: non-finite GBA or pose-graph result")
+    print(f"[10a] _dispatch_global_ba (K={loop_closing.GBA_KF_CAP}, P={loop_closing.GBA_PT_CAP}, "
+          f"O={loop_closing.GBA_OBS_CAP}) and optimize_pose_graph (K={args[0].shape[0]}, "
+          f"E={args[2].shape[0]}) under set_sync_debug_mode('error'): no host sync")
+    # where a dense essential-graph solve's time goes
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve(*args, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    key, busy = device_ms(events)
+    n_kernels = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"[10a] profile of one optimize_pose_graph: wall {wall:.3f} ms under the profiler, device busy "
+          f"{busy:.3f} ms ({n_kernels} kernel launches), idle share {1 - busy / wall:.3f}")
+    print(events.table(sort_by=key, row_limit=12))
+    return {"record": rec, "pose_graph_ms": pg_ms, "gba_ms": gba_ms, "pose_graph_busy_ms": busy}
+
+
+def phase_relocalization(system_cfg, images, poses, params, name: str) -> dict:
+    """10b: SLAMSystem.track_stereo at KITTI 00-02's settings with
+    attach_vocabulary (a K=10, L=3 vocabulary trained on frames 0, 5 and 10)
+    over phase 7's turn with frames 12-14 blank: LOST on the blackout,
+    relocalized within RELOC_WITHIN frames after it, no frame lost after
+    that, ATE over the tracked frames < 3% of travel, K2 once per extracted
+    frame."""
+    voc = vocabulary_from([images[k][0] for k in (0, 5, 10)], params, 10, 3)
+    system = dsp_slam.build_system(system_cfg, None, enable_objects=False, device=DEV, vocabulary=voc,
+                                   enable_loop=False)
+    blank = np.zeros_like(images[0][0])
+    fast_score.fast_score_maps.launches = 0
+    t0 = time.perf_counter()
+    for k, (left, right) in enumerate(images):
+        if k in BLACKOUT:
+            left = right = blank
+        system.track_stereo(left, right, 0.1 * k)
+    system.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2 = fast_score.fast_score_maps.launches
+    tr = system.tracker
+    lost = [l for _, _, l in tr.trajectory]
+    n = len(images)
+    end = BLACKOUT[-1] + 1
+    back = next((k for k in range(end, n) if not lost[k]), None)
+    ok = [k for k in range(n) if not lost[k]]
+    sel = np.asarray(ok)
+    travel = float(np.linalg.norm(np.diff(poses[sel, :3, 3], axis=0), axis=1).sum())
+    ate = ate_rmse(trajectory_wc(tr)[sel], poses[sel])["rmse"]
+    print(f"[10b] relocalization: blank frames {list(BLACKOUT)}, lost frames "
+          f"{[k for k in range(n) if lost[k]]}, back at frame {back}, {len(system.kf_db.vectors)} keyframes "
+          f"in the database; ATE {ate:.5f} m over {travel:.3f} m of tracked frames; K2 launches {k2} "
+          f"({tr.n_redone} re-tracked); {wall / n * 1e3:.3f} ms per frame on {name}")
+    check(all(lost[k] for k in BLACKOUT), "10b: a blank frame was not lost")
+    check(back is not None and back - end <= RELOC_WITHIN, f"10b: relocalized at {back}, blackout ended {end}")
+    check(not any(lost[back:]), f"10b: lost frames after relocalizing: {[k for k in range(back, n) if lost[k]]}")
+    check(not any(lost[:BLACKOUT[0]]), "10b: lost frames before the blackout")
+    check(ate < 0.03 * travel, f"10b: ATE {ate} m >= 3% of {travel} m")
+    check(k2 == n + tr.n_redone, f"10b: K2 launched {k2} times, expected {n} + {tr.n_redone}")
+    return {"k2_launches": k2, "back": back, "ate": ate, "voc": voc}
+
+
+def phase_loop_slam(system_cfg, exp_dir: str, images, poses, voc, drain_8b: list, name: str) -> dict:
+    """10c: 8b's system (dsp_slam.build_system, the random full-width
+    DeepSDF, pipelined) with loop closing enabled, over phase 7's turn (no
+    revisit): 0 loops closed, 0 lost, K1 and K2 counted; each
+    insert_keyframe timed on the host around the call; the keyframe drains
+    beside 8b's."""
+    cfg = dataclasses.replace(system_cfg, deepsdf_dir=exp_dir)
+    system = dsp_slam.build_system(cfg, None, pipelined=True, vocabulary=voc)
+    system.detection_source = kitti_detections(poses)
+    timer = StageTimer()
+    system.attach_telemetry(timer)
+    closer = system.loop_closer
+    insert = closer.insert_keyframe
+    insert_ms = []
+
+    def timed_insert(kf):
+        t0 = time.perf_counter()
+        out = insert(kf)
+        insert_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    closer.insert_keyframe = timed_insert
+    fast_score.fast_score_maps.launches = 0
+    decoder_fused.sdf_and_input_grad.launches = 0
+    for k, (left, right) in enumerate(images):
+        system.track_stereo(left, right, 0.1 * k)
+    system.flush()
+    torch.cuda.synchronize()
+    k1, k2 = decoder_fused.sdf_and_input_grad.launches, fast_score.fast_score_maps.launches
+    expected = system.local_mapper.object_pipeline.expected_k1_launches()
+    tr = system.tracker
+    n = len(images)
+    lost = sum(1 for _, _, l in tr.trajectory if l)
+    drains = [x * 1e3 for x in timer.samples["keyframe_drain"]]
+    print(f"[10c] stereo object SLAM with loop closing (KITTI 00-02, random full-width DeepSDF, "
+          f"pipelined): {lost} lost, loops closed {closer.loops_closed}, {len(system.map.keyframes)} "
+          f"keyframes, {len(system.kf_db.vectors)} in the database; K1 launches {k1} (expected "
+          f"{expected}), K2 {k2}; insert_keyframe ms {[round(x, 3) for x in insert_ms]} (mean "
+          f"{np.mean(insert_ms):.3f}); keyframe_drain mean {np.mean(drains):.3f} / median "
+          f"{np.median(drains):.3f} ms over {len(drains)}, 8b's without the loop closer "
+          f"{np.mean(drain_8b):.3f} / {np.median(drain_8b):.3f} ms over {len(drain_8b)} (its "
+          f"one drain under the profiler included) on {name}")
+    check(closer.loops_closed == 0, f"10c: {closer.loops_closed} false loops")
+    check(len(tr.trajectory) == n and lost == 0, f"10c: {lost} lost frames")
+    check(k1 == expected and k1 > 0, f"10c: K1 launched {k1} times, expected {expected} (> 0)")
+    check(k2 == n + tr.n_redone, f"10c: K2 launched {k2} times, expected {n} + {tr.n_redone}")
+    check(len(insert_ms) == len(system.kf_db.vectors) >= 2, f"10c: {len(insert_ms)} keyframes inserted")
+    system.map.check_invariants()
+    return {"k1_launches": k1, "k2_launches": k2, "insert_ms": insert_ms, "drain_ms": drains}
+
+
+def chain_map(n_kf: int, drift_per_kf: float, step: float = 0.5):
+    """tests/test_pose_graph_scale.py's `_chain_map`: an out-and-back street
+    (truth x 0 -> L -> 0) whose estimates drift linearly; the spanning tree
+    is the chain, with strong covisibility between neighbours."""
+    rng = np.random.default_rng(3)
+    m = slam_map_mod.Map()
+    kfs, truth = [], []
+    half = n_kf // 2
+    for k in range(n_kf):
+        x_true = step * k if k < half else step * (2 * half - k)
+        feats = {"xy": rng.uniform(0, 400, (8, 2)).astype(np.float32),
+                 "desc": rng.integers(0, 2**32, (8, 8), dtype=np.uint32),
+                 "angle": np.zeros(8, np.float32), "level": np.zeros(8, np.int32),
+                 "sigma2": np.ones(8, np.float32), "response": np.zeros(8, np.float32),
+                 "valid": np.ones(8, np.float32)}
+        frame = slam_map_mod.Frame(0.1 * k, feats)
+        frame.T_cw = np.eye(4, dtype=np.float32)
+        frame.T_cw[0, 3] = -(x_true + drift_per_kf * k)
+        kf = slam_map_mod.KeyFrame(frame)
+        m.add_keyframe(kf)
+        if kfs:
+            kf.parent = kfs[-1].id
+            kfs[-1].children.add(kf.id)
+            kf.covis[kfs[-1].id] = kfs[-1].covis[kf.id] = 150
+        kfs.append(kf)
+        truth.append(x_true)
+    return m, kfs, np.asarray(truth)
+
+
+def phase_pose_graph_cg(name: str) -> dict:
+    """10d: tests/test_pose_graph_scale.py's 1000-keyframe essential graph
+    (its slow test: an out-and-back chain with 3 mm/keyframe drift, the
+    last three keyframes snapped to truth, a loop edge to keyframe 4)
+    through LoopCloser._optimize_essential_graph: the coarse dense pass,
+    then one optimize_pose_graph_cg solve at 1024 vertices, timed (CUDA
+    events and the host wall) with the CG iterations of each LM step."""
+    n = 1000
+    m, kfs, truth = chain_map(n, 0.003)
+    voc = Vocabulary.train(np.random.default_rng(0).integers(0, 2**32, (64, 8), dtype=np.uint32),
+                           branching=4, levels=2, seed=0, device=DEV)
+    closer = loop_closing.LoopCloser(m, voc, [500.0, 500.0, 320.0, 240.0, 200.0], fix_scale=True,
+                                     device=DEV)
+    cur, loop = kfs[-1], kfs[4]
+    corrections = {}
+    for i, kf in enumerate(kfs[-3:]):
+        before = kf.T_cw.copy()
+        kf.T_cw = before.copy()
+        kf.T_cw[0, 3] = -truth[n - 3 + i]
+        corrections[kf.id] = (before, kf.T_cw)
+    cur.loop_edges.add(loop.id)
+    loop.loop_edges.add(cur.id)
+    stats, spans, walls = {}, [], []
+    cg = pose_graph.optimize_pose_graph_cg
+
+    def timed_cg(*args, **kw):
+        t0 = time.perf_counter()
+        out = around_launches(spans, cg)(*args, stats=stats, **kw)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        stats["K"], stats["E"] = args[0].shape[0], args[2].shape[0]
+        return out
+
+    with mock.patch.object(pose_graph, "optimize_pose_graph_cg", timed_cg):
+        closer._optimize_essential_graph(cur, loop, corrections)
+    err = np.array([abs(-float(kf.T_cw[0, 3]) - truth[i]) for i, kf in enumerate(kfs)])
+    est = np.array([-float(kf.T_cw[0, 3]) for kf in kfs])
+    kink = float(np.abs(np.abs(np.diff(est)) - np.abs(np.diff(truth))).max())
+    its = stats.get("cg_iters", [])
+    print(f"[10d] essential graph at {n} keyframes: optimize_pose_graph_cg (K={stats.get('K')}, "
+          f"E={stats.get('E')}) {events_ms(spans)[0]:.3f} ms between CUDA events, {walls[0]:.3f} ms host "
+          f"wall; CG iterations per LM step {its} ({sum(its)} in all, host check every "
+          f"{pose_graph.CG_CHECK_EVERY}); error mid-chain {err[n // 2]:.4f} m, max {err.max():.4f} m, "
+          f"kink {kink:.4f} m on {name}")
+    check(len(walls) == 1 and len(its) == 25, f"10d: {len(walls)} CG solves, {len(its)} LM steps")
+    check(err[n // 2] < 0.35 and err.max() < 0.5 and kink < 0.08,
+          f"10d: mid {err[n // 2]}, max {err.max()}, kink {kink}")
+    m.check_invariants()
+    return {"ms": events_ms(spans)[0], "wall_ms": walls[0], "cg_iters": its}
+
+
+def continue_on(system, slam_map, voc):
+    """Put a loaded map under a freshly built system and relocalize into it:
+    the map goes to every stage, the vocabulary indexes its keyframes, and
+    tracking starts LOST at the newest keyframe."""
+    system.map = system.tracker.map = system.local_mapper.map = slam_map
+    if system.local_mapper.object_pipeline is not None:
+        system.local_mapper.object_pipeline.map = slam_map
+    system.enable_loop_closing(voc)
+    for kf_id, kf in sorted(slam_map.keyframes.items()):
+        kf.bow = voc.bow_vector(kf.feats_torch(DEV)["desc"], kf.feats["valid"])
+        system.kf_db.add(kf_id, kf.bow)
+    system.tracker.state = tracking.State.LOST
+    system.tracker.ref_kf = slam_map.keyframes[max(slam_map.keyframes)]
+
+
+def phase_checkpoint(tmp: str, name: str) -> dict:
+    """10e: dsp_slam.main --vocabulary --save_state over the mini-KITTI
+    fixture on the card; load_state and 3 more frames (the fixture again,
+    relocalized in the loaded map); extract_map_objects over the saved map
+    on the card and on the CPU: the same vertex and face counts, every
+    vertex within 1e-4 of the other mesh's nearest."""
+    cfg = mini_kitti_config(tmp)
+    seq = KITTISequence(MINI_KITTI, None)
+    params = orb.ORBParams(n_features=1000, n_levels=4)
+    voc = vocabulary_from([seq.load_stereo_gray(0)[0]], params, 6, 2)
+    voc_path, state = os.path.join(tmp, "voc.npz"), os.path.join(tmp, "state.npz")
+    voc.save(voc_path)
+    out = os.path.join(tmp, "ckpt_map")
+    fast_score.fast_score_maps.launches = 0
+    system = dsp_slam.main(["--sequence_dir", MINI_KITTI, "--config", cfg, "--map_dir", out,
+                            "--vocabulary", voc_path, "--save_state", state])
+    k2 = fast_score.fast_score_maps.launches
+    check(system.state.name == "OK" and system.loop_closer is not None, f"10e: {system.state}")
+    check(k2 == seq.num_frames + system.tracker.n_redone, f"10e: K2 launched {k2} times")
+    loaded = state_io.load_state(state)
+    check(set(loaded.keyframes) == set(system.map.keyframes) and len(loaded.points) > 100,
+          f"10e: checkpoint holds {len(loaded.keyframes)} keyframes, {len(loaded.points)} points")
+    loaded.check_invariants()
+    system_cfg = SystemConfig.load(cfg)
+    cont = dsp_slam.build_system(system_cfg, KITTISequence(MINI_KITTI, system_cfg.detection), device=DEV)
+    continue_on(cont, loaded, Vocabulary.load_any(voc_path))
+    n_kf = len(loaded.keyframes)
+    states = []
+    for k in range(3):
+        cont.track_stereo(*seq.load_stereo_gray(k), 10.0 + seq.timestamp(k))
+        states.append(cont.state.name)
+    cont.flush()
+    check(states == ["OK"] * 3, f"10e: continued frames {states}")
+    cont.map.check_invariants()
+    meshes = {}
+    for dev in ("cuda", "cpu"):
+        objs, meshes[dev] = extract_map_objects.main(["--map_dir", out, "--config", cfg, "--device", dev,
+                                                      "--output_dir", os.path.join(tmp, f"meshes_{dev}")])
+    check(len(objs) >= 1 and meshes["cuda"].keys() == meshes["cpu"].keys(), f"10e: {len(objs)} objects")
+    d, reordered = 0.0, 0
+    for obj_id, m in meshes["cuda"].items():
+        c = meshes["cpu"][obj_id]
+        check(m["vertices"].shape == c["vertices"].shape and m["faces"].shape == c["faces"].shape,
+              f"10e: object {obj_id} mesh {m['vertices'].shape} / {m['faces'].shape} on the card, "
+              f"{c['vertices'].shape} / {c['faces'].shape} on the CPU")
+        if not len(m["vertices"]):
+            continue
+        # the host mesher welds vertices by rounded position and returns them
+        # in that order, so grid values that differ in the last bits can
+        # reorder them: each vertex is held against the nearest of the other
+        # mesh's, both ways
+        d = max(d, float(cKDTree(c["vertices"]).query(m["vertices"])[0].max()),
+                float(cKDTree(m["vertices"]).query(c["vertices"])[0].max()))
+        reordered += int(np.any(m["vertices"] != c["vertices"], axis=1).sum())
+    print(f"[10e] dsp_slam --vocabulary --save_state over mini-KITTI: {len(loaded.keyframes)} keyframes, "
+          f"{len(loaded.points)} points, {len(loaded.objects)} objects saved; continued on the loaded map "
+          f"{states} ({len(cont.map.keyframes) - n_kf} new keyframes); mesh export card vs CPU: "
+          f"{[(i, len(m['vertices']), len(m['faces'])) for i, m in meshes['cuda'].items()]} (id, vertices, "
+          f"faces), max distance to the other mesh's nearest vertex {d:.3e} ({reordered} vertices at "
+          f"another index); K2 launches {k2} on {name}")
+    check(d <= 1e-4, f"10e: mesh vertices differ by {d}")
+    return {"k2_launches": k2}
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1419,6 +1822,26 @@ def main():
         phase_mono_cli(tmp, name)
         rgbd_launches = phase_rgbd(name)
 
+        t10 = time.perf_counter()
+        loop = phase_long_loop(name)
+        reloc = phase_relocalization(system_cfg, images, poses, params, name)
+        drain_8b = [x * 1e3 for x in slam["system"].telemetry.samples["keyframe_drain"]]
+        loop_slam = phase_loop_slam(system_cfg, os.path.join(tmp, "deepsdf"), images, poses, reloc["voc"],
+                                    drain_8b, name)
+        cg = phase_pose_graph_cg(name)
+        ckpt = phase_checkpoint(tmp, name)
+        print(f"[10] slice 5 phases: {time.perf_counter() - t10:.1f} s")
+
+    slice5 = {
+        "long_loop": {k: loop["record"][k] for k in ("ate_before_loop_cm", "ate_after_loop_cm",
+                                                      "loops_closed", "loop_kfs", "loop_wall_s")},
+        "pose_graph_ms": loop["pose_graph_ms"], "pose_graph_busy_ms": loop["pose_graph_busy_ms"],
+        "gba_ms": loop["gba_ms"],
+        "reloc_back_at": reloc["back"], "reloc_ate_m": reloc["ate"],
+        "insert_keyframe_ms": loop_slam["insert_ms"], "loop_slam_drain_ms": loop_slam["drain_ms"],
+        "cg_ms": cg["ms"], "cg_wall_ms": cg["wall_ms"], "cg_iters": cg["cg_iters"],
+    }
+    print(json.dumps({"slice5": slice5}))
     print(name)
     kernels = [{
         "name": "decoder_fused", "route": "cuda", "source": SRC, "replaces": REPLACES,
@@ -1437,6 +1860,7 @@ def main():
         "slam_launches": slam["k1_launches"], "slam_keyframe_drain_share": slam["k1_share"],
         "mono_launches": mono_obj["k1_launches"], "mono_keyframe_drain_share": mono_obj["k1_share"],
         "mono_gn_ms": mono_obj["gn_ms"],
+        "loop_slam_launches": loop_slam["k1_launches"],
     }, {
         "name": "fast_score", "route": "cuda", "source": K2_SRC, "replaces": K2_REPLACES,
         "launches": trk["launches"], "max_abs_err": k2["max_abs_err"],
@@ -1456,6 +1880,8 @@ def main():
         "mono_fps": {f: {"mean": mono[f]["value"], "median": mono[f]["median_fps"]}
                      for f in ("pipelined", "non-pipelined")},
         "mono_busy_ms_per_frame": mono_prof["busy_ms_per_frame"],
+        "loop_launches": {"relocalization": reloc["k2_launches"], "loop_slam": loop_slam["k2_launches"],
+                          "checkpoint": ckpt["k2_launches"]},
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,17 +5,21 @@ Port of dspslam_tpu/apps/dsp_slam.py. Usage:
     python -m dspslam_tpu_torch.apps.dsp_slam \\
         --sequence_dir <kitti_seq> --settings configs/KITTI04-12.yaml \\
         --config configs/config_kitti.json --map_dir out/map \\
-        [--frames N] [--no_objects] [--pipeline] [--device cpu]
+        [--frames N] [--no_objects] [--pipeline] [--vocabulary voc.npz [--no_loop]] \
+        [--save_state map.npz] [--device cpu]
 
 The per-frame loop mirrors dsp_slam.cc:62-105: track stereo, feed each
 keyframe its object detections (offline labels), save the map and the
 trajectory at the end, print median / mean tracking times. `--device`
 defaults to cuda; asking for cuda without a card is an error, never a
 silent run on the CPU. `--profile_dir` writes a torch.profiler trace.
+`--vocabulary` (a trained .npz, or a DBoW2 ORBvoc .bin / .txt) attaches
+relocalization after tracking loss and, unless `--no_loop`, loop closing;
+`--save_state` writes a resumable map checkpoint (slam/state_io.py).
 
-Options whose modules are not ported yet raise: `--vocabulary` and
-`--save_state` (slice 5), `--overlay_dir` and `--live_view_dir` (slice 7's
-viz). The JAX app's map snapshot image (viz) is not written.
+Options whose modules are not ported yet raise: `--overlay_dir` and
+`--live_view_dir` (slice 7's viz). The JAX app's map snapshot image (viz)
+is not written.
 """
 
 from __future__ import annotations
@@ -33,8 +37,6 @@ from ..utils.timing import StageTimer
 from .reconstruct_frame import get_decoder, resolve_device
 
 NOT_PORTED = {
-    "vocabulary": "--vocabulary (place recognition and loop closing) comes with slice 5 and is not ported",
-    "save_state": "--save_state (map checkpoints, slam/state_io.py) comes with slice 5 and is not ported",
     "overlay_dir": "--overlay_dir (viz/frame_drawer.py) comes with slice 7 and is not ported",
     "live_view_dir": "--live_view_dir (viz/live_viewer.py) comes with slice 7 and is not ported",
     "live_view_port": "--live_view_port (viz/live_viewer.py) comes with slice 7 and is not ported",
@@ -42,11 +44,12 @@ NOT_PORTED = {
 
 
 def build_system(system_cfg: cfg_mod.SystemConfig, sequence, enable_objects=True, pipelined=False,
-                 device=None):
+                 device=None, vocabulary=None, enable_loop=True):
     """The SLAMSystem dsp_slam.cc builds from a SystemConfig: tracker and
     ORB settings from the camera and ORB sections, the object pipeline on
     the configured DeepSDF decoder (the analytic sphere decoder when no
-    experiment dir is configured), offline-label detections per keyframe.
+    experiment dir is configured), offline-label detections per keyframe;
+    with a vocabulary, relocalization and (enable_loop) loop closing.
     device None means cuda."""
     device = resolve_device("cuda" if device is None else str(device))
     cam = system_cfg.camera
@@ -84,9 +87,15 @@ def build_system(system_cfg: cfg_mod.SystemConfig, sequence, enable_objects=True
             except FileNotFoundError:
                 return []
 
-    return SLAMSystem(tracker_cfg=tracker_cfg, orb_params=orb_params,
-                      object_pipeline_factory=pipeline_factory,
-                      detection_source=detection_source, device=device)
+    system = SLAMSystem(tracker_cfg=tracker_cfg, orb_params=orb_params,
+                        object_pipeline_factory=pipeline_factory,
+                        detection_source=detection_source, device=device)
+    if vocabulary is not None:
+        if enable_loop:
+            system.enable_loop_closing(vocabulary, fix_scale=True)
+        else:
+            system.attach_vocabulary(vocabulary)
+    return system
 
 
 def main(argv=None):
@@ -97,10 +106,11 @@ def main(argv=None):
     p.add_argument("--map_dir", default="map")
     p.add_argument("--frames", type=int, default=None)
     p.add_argument("--no_objects", action="store_true")
-    p.add_argument("--no_loop", action="store_true", help="accepted; loop closing is not ported")
-    p.add_argument("--vocabulary", help="not ported (slice 5)")
+    p.add_argument("--no_loop", action="store_true",
+                   help="with --vocabulary: relocalization only, no loop closing")
+    p.add_argument("--vocabulary", help="trained vocabulary .npz, or a DBoW2 ORBvoc .bin / .txt")
     p.add_argument("--profile_dir", help="write a torch.profiler trace here")
-    p.add_argument("--save_state", help="not ported (slice 5)")
+    p.add_argument("--save_state", help="write a resumable map checkpoint (npz) here")
     p.add_argument("--overlay_dir", help="not ported (slice 7)")
     p.add_argument("--save_frames_dir",
                    help="per-frame map dumps (System::SaveMapCurrentFrame format)")
@@ -120,8 +130,14 @@ def main(argv=None):
     if args.settings:
         system_cfg = cfg_mod.SystemConfig.from_reference_yaml(args.settings, base=system_cfg)
     seq = KITTISequence(args.sequence_dir, system_cfg.detection)
+    voc = None
+    if args.vocabulary:
+        from ..place.vocabulary import Vocabulary
+
+        voc = Vocabulary.load_any(args.vocabulary)
     system = build_system(system_cfg, seq, enable_objects=not args.no_objects,
-                          pipelined=args.pipeline, device=device)
+                          pipelined=args.pipeline, device=device, vocabulary=voc,
+                          enable_loop=not args.no_loop)
 
     n = args.frames or seq.num_frames
     timer = StageTimer()
@@ -150,6 +166,10 @@ def main(argv=None):
         profiler.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
     os.makedirs(args.map_dir, exist_ok=True)
     system.save_map(args.map_dir)
+    if args.save_state:
+        from ..slam import state_io
+
+        state_io.save_state(system.map, args.save_state)
     print(timer)
     stats = timer.report().get("track", {})
     print(f"median tracking time: {stats.get('median_ms', 0):.1f} ms, "

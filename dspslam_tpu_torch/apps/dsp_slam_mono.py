@@ -6,15 +6,16 @@ Port of dspslam_tpu/apps/dsp_slam_mono.py. Usage:
     python -m dspslam_tpu_torch.apps.dsp_slam_mono \\
         --sequence_dir <seq> --config configs/freiburg_001.json \\
         --map_dir out/ [--settings <reference yaml>] [--frames N] \\
-        [--no_objects] [--pipeline] [--device cpu]
+        [--no_objects] [--pipeline] [--vocabulary voc.npz] [--device cpu]
 
 Frames are the sequence's PNG / JPG images (image_0/ or the directory
 itself); detections come from the offline 2D labels the config names
 (`detection.path_label_2d`), the largest mask per frame. It writes
 MapPoints.txt, MapObjects.txt, Cameras.txt and trajectory_tum.txt to
 --map_dir. `--device` defaults to cuda; asking for cuda without a card is
-an error, never a silent run on the CPU. `--vocabulary` (relocalization,
-slice 5) is not ported and raises.
+an error, never a silent run on the CPU. `--vocabulary` attaches
+relocalization after tracking loss (loop closing stays stereo-only, as in
+the reference).
 """
 
 from __future__ import annotations
@@ -40,15 +41,13 @@ def main(argv=None):
     p.add_argument("--map_dir", default="map")
     p.add_argument("--frames", type=int, default=None)
     p.add_argument("--no_objects", action="store_true")
-    p.add_argument("--vocabulary", help="not ported (slice 5)")
+    p.add_argument("--vocabulary", help="trained vocabulary .npz, or a DBoW2 ORBvoc .bin / .txt "
+                   "(relocalization after tracking loss; loop closing stays stereo-only)")
     p.add_argument("--pipeline", action="store_true",
                    help="one-frame-lag pipelined tracking (distortion-free cameras; "
                         "lens-distorted ones stay on the modular path)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.vocabulary is not None:
-        raise NotImplementedError(
-            "--vocabulary (relocalization, place recognition) comes with slice 5 and is not ported")
     device = resolve_device(args.device)
 
     system_cfg = cfg_mod.SystemConfig.load(args.config) if args.config else cfg_mod.SystemConfig()
@@ -79,6 +78,10 @@ def main(argv=None):
     system = SLAMSystem(tracker_cfg=tracker_cfg, orb_params=orb_params,
                         object_pipeline_factory=pipeline_factory,
                         detection_source=detection_source, device=device)
+    if args.vocabulary:
+        from ..place.vocabulary import Vocabulary
+
+        system.attach_vocabulary(Vocabulary.load_any(args.vocabulary))
     n = args.frames or seq.num_frames
     timer = StageTimer()
     for frame_id in range(n):

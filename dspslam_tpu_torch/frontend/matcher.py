@@ -25,10 +25,10 @@ BIG = 1 << 20
 
 
 def _bits(desc: torch.Tensor) -> torch.Tensor:
-    """(N, 8) int32 descriptor words -> (N, 256) f32 bits (bit i of word j
-    at column 32 j + i)."""
+    """(..., 8) int32 descriptor words -> (..., 256) f32 bits (bit i of word
+    j at column 32 j + i)."""
     shifts = torch.arange(32, dtype=torch.int32, device=desc.device)
-    return ((desc[:, :, None] >> shifts) & 1).reshape(desc.shape[0], 256).to(torch.float32)
+    return ((desc[..., None] >> shifts) & 1).reshape(*desc.shape[:-1], 256).to(torch.float32)
 
 
 def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:

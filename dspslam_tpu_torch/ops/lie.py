@@ -178,7 +178,8 @@ def log_sim3(T: torch.Tensor) -> torch.Tensor:
     s, R, t = split_sim3(T)
     log_s = torch.log(s)
     w = log_so3(R)
-    v = (torch.linalg.inv(sim3_w_matrix(w, log_s)) @ t[..., None])[..., 0]
+    # inv_ex: the same inverse as linalg.inv, without its host-side error check
+    v = (torch.linalg.inv_ex(sim3_w_matrix(w, log_s))[0] @ t[..., None])[..., 0]
     return torch.cat([v, w, log_s[..., None]], dim=-1)
 
 

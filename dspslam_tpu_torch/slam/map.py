@@ -321,16 +321,35 @@ class Map:
         self.keyframes[kf.id] = kf
 
     def erase_keyframe(self, kf_id: int):
-        """Remove a keyframe and every covisibility entry naming it, in
-        every keyframe that lists it (reference KeyFrame::SetBadFlag).
-        The JAX package erased it only from the keyframes in its own
-        `covis`, and a stale entry elsewhere crashed BA dispatch
-        (KeyError: 48, ROADMAP fault R1)."""
+        """Remove a keyframe and every covisibility, child and loop-edge
+        entry naming it, in every keyframe that lists it (reference
+        KeyFrame::SetBadFlag). The JAX package erased it only from the
+        keyframes in its own `covis`, and a stale entry elsewhere crashed
+        BA dispatch (KeyError: 48, ROADMAP fault R1)."""
         self.keyframes.pop(kf_id, None)
         for other in self.keyframes.values():
             other.covis.pop(kf_id, None)
+            other.children.discard(kf_id)
+            other.loop_edges.discard(kf_id)
         for hook in self.keyframe_erase_hooks:
             hook(kf_id)
+
+    def check_invariants(self):
+        """Raise AssertionError unless the keyframe graph is consistent:
+        covisibility is symmetric with equal weights, and no covisibility,
+        child, parent or loop-edge entry names an erased keyframe. Loop
+        correction and global BA rewrite this graph; the tests call it
+        after each."""
+        kfs = self.keyframes
+        for kf_id, kf in kfs.items():
+            for other, w in kf.covis.items():
+                assert other in kfs, f"keyframe {kf_id}: covis names erased {other}"
+                assert kfs[other].covis.get(kf_id) == w, f"covis {kf_id}-{other} not symmetric"
+            for name, ids in (("children", kf.children), ("loop edge", kf.loop_edges)):
+                stale = [i for i in ids if i not in kfs]
+                assert not stale, f"keyframe {kf_id}: {name} names erased {stale}"
+            assert kf.parent is None or kf.parent in kfs, \
+                f"keyframe {kf_id}: parent {kf.parent} erased"
 
     # -- points ------------------------------------------------------------
     def add_point(self, p: MapPoint):

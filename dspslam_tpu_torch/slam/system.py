@@ -9,8 +9,9 @@ lost frames skipped), and TUM trajectories.
 
 `SLAMSystem(..., device=None)` runs on the card and raises without one
 (pass device="cpu" to run on the CPU); on the card it turns TF32 off in
-cuBLAS and cuDNN itself. Loop closing and relocalization (slice 5) are
-not ported yet and raise NotImplementedError.
+cuBLAS and cuDNN itself. `attach_vocabulary` adds the keyframe database
+and relocalization after tracking loss (every modality);
+`enable_loop_closing` adds the loop closer, which shares that database.
 """
 
 from __future__ import annotations
@@ -43,6 +44,9 @@ class SLAMSystem:
         # tracking keyframe insertion waits for pending triangulation
         self.tracker.mapper_idle_fn = self.local_mapper.accepting_keyframes
         self.detection_source = detection_source   # fn(frame_idx) -> list[Detection]
+        self.loop_closer = None
+        self.vocabulary = None
+        self.kf_db = None
         self.frame_idx = 0
         self.telemetry = None          # optional utils.timing.StageTimer
         self._last_map_state = None
@@ -57,12 +61,33 @@ class SLAMSystem:
         self.tracker.telemetry = timer
 
     def attach_vocabulary(self, vocabulary):
-        raise NotImplementedError(
-            "attach_vocabulary (KeyFrameDatabase + relocalization) comes with slice 5 "
-            "(place recognition and loop closing) and is not ported")
+        """Always-on KeyFrameDatabase + Relocalizer (System.cc:76-87,
+        Tracking.cc:1374): relocalization works in every modality; loop
+        closing stays opt-in (enable_loop_closing). Every new keyframe's BoW
+        vector enters the database, and culled keyframes leave it
+        (KeyFrameDatabase::erase)."""
+        from ..place.vocabulary import KeyFrameDatabase
+        from .relocalization import Relocalizer
+
+        if self.vocabulary is vocabulary and self.kf_db is not None:
+            return
+        self.vocabulary = vocabulary
+        self.kf_db = KeyFrameDatabase(vocabulary)
+        self.map.keyframe_erase_hooks.append(self.kf_db.erase)
+        c = self.tracker_cfg
+        self.tracker.relocalizer = Relocalizer(self.map, vocabulary, self.kf_db,
+                                               [c.fx, c.fy, c.cx, c.cy, c.bf], device=self.device)
 
     def enable_loop_closing(self, vocabulary, fix_scale: bool = True):
-        raise NotImplementedError("enable_loop_closing comes with slice 5 (loop closing) and is not ported")
+        """Attach a loop closer (stereo default: fixed scale; the reference
+        runs LoopClosing for stereo, System.cc:124-132). It shares the
+        keyframe database with the relocalizer."""
+        from ..place.loop_closing import LoopCloser
+
+        self.attach_vocabulary(vocabulary)
+        c = self.tracker_cfg
+        self.loop_closer = LoopCloser(self.map, vocabulary, [c.fx, c.fy, c.cx, c.cy, c.bf],
+                                      fix_scale=fix_scale, db=self.kf_db, device=self.device)
 
     # ------------------------------------------------------------------
     def track_stereo(self, img_l, img_r, timestamp: float):
@@ -79,7 +104,7 @@ class SLAMSystem:
         if tel is None:
             frame = track_fn()
             self._drain_keyframes()
-            self.local_mapper.poll()
+            self._poll_background()
         else:
             t0 = time.perf_counter()
             frame = track_fn()
@@ -89,20 +114,29 @@ class SLAMSystem:
             t2 = time.perf_counter()
             if t2 - t1 > 1e-4:          # only frames that did keyframe work
                 tel.add("keyframe_drain", t2 - t1)
-            self.local_mapper.poll()
+            self._poll_background()
             t3 = time.perf_counter()
             if t3 - t2 > 1e-4:
                 tel.add("background_poll", t3 - t2)
         self.frame_idx += 1
         return frame
 
+    def _poll_background(self):
+        """One deferred-stage step per frame: the local mapper's pending BA
+        and the loop closer's backgrounded global BA."""
+        self.local_mapper.poll()
+        if self.loop_closer is not None:
+            self.loop_closer.poll()
+
     def flush(self):
-        """Drain the pipelined in-flight frame and every pending mapping
-        stage (sequence end)."""
+        """Drain the pipelined in-flight frame, every pending mapping stage
+        and the backgrounded global BA (sequence end)."""
         frame = self.tracker.flush()
         if frame is not None:
             self._drain_keyframes()
         self.local_mapper.flush()
+        if self.loop_closer is not None:
+            self.loop_closer.flush()
         return frame
 
     def activate_localization_mode(self):
@@ -116,12 +150,26 @@ class SLAMSystem:
     def _drain_keyframes(self):
         while self.tracker.new_keyframes:
             kf = self.tracker.new_keyframes.pop(0)
+            if self.loop_closer is not None:
+                # a backgrounded global BA lands before new mapping work
+                # packs the poses it will overwrite
+                self.loop_closer.flush()
             if self.detection_source is not None:
                 # kf.seq_idx: the track call that produced this keyframe (in
                 # pipelined mode keyframes surface one call later)
                 idx = kf.seq_idx if kf.seq_idx >= 0 else self.frame_idx
                 kf.detections = self.detection_source(idx) or []
+            if self.kf_db is not None and self.loop_closer is None:
+                # no loop closer to do it: index the keyframe for
+                # relocalization (Tracking.cc ComputeBoW + KFDB add)
+                kf.bow = self.vocabulary.bow_vector(kf.feats_torch(self.device)["desc"],
+                                                    kf.feats["valid"])
+                self.kf_db.add(kf.id, kf.bow)
             self.local_mapper.process(kf)
+            if self.loop_closer is not None and self.loop_closer.insert_keyframe(kf):
+                # the loop correction rewrote the poses the pending local BA
+                # was computed from (reference mbAbortBA)
+                self.local_mapper.drop_pending_ba()
         # keyframe culling may have erased the tracker's reference
         ref = self.tracker.ref_kf
         if ref is not None and (ref.bad or ref.id not in self.map.keyframes):
@@ -133,10 +181,15 @@ class SLAMSystem:
     def state(self):
         return self.tracker.state
 
+    def keyframe_poses(self):
+        return {kf_id: kf.T_cw.copy() for kf_id, kf in sorted(self.map.keyframes.items())}
+
     # ------------------------------------------------------------------
     # savers (System_util.cc:108-149 formats)
     def save_map(self, out_dir: str):
         self.local_mapper.flush()      # the saved map includes the last BA solve
+        if self.loop_closer is not None:
+            self.loop_closer.flush()
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "MapPoints.txt"), "w") as f:
             for p in self.map.points.values():
@@ -171,6 +224,8 @@ class SLAMSystem:
         """Full reset (System::Reset): wipe the map, drop deferred work."""
         self.local_mapper.drop_pending_ba()
         self.tracker.reset()
+        if self.loop_closer is not None:
+            self.loop_closer.flush()
         self.frame_idx = 0
 
     def shutdown(self):
@@ -178,8 +233,11 @@ class SLAMSystem:
         self.flush()
 
     def map_changed(self) -> bool:
-        """System::MapChanged: True once after the map's cardinality moved."""
-        state = (len(self.map.keyframes), len(self.map.points))
+        """System::MapChanged: True once after big map updates (loop closure,
+        global BA, reset), seen through the map's cardinality and the
+        loop-closure count."""
+        state = (len(self.map.keyframes), len(self.map.points),
+                 self.loop_closer.loops_closed if self.loop_closer else 0)
         changed = state != self._last_map_state
         self._last_map_state = state
         return changed

@@ -1,48 +1,14 @@
 """Trajectory and mesh evaluation: ATE RMSE after Umeyama / Horn
 alignment, RPE, chamfer distance, KITTI trajectory files.
 
-A host numpy copy of dspslam_tpu/utils/evaluation.py, with the `horn_sim3`
-it needs from dspslam_tpu/place/sim3.py.
+A host numpy copy of dspslam_tpu/utils/evaluation.py.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-
-def horn_sim3(p1: np.ndarray, p2: np.ndarray, fix_scale: bool = False):
-    """Closed-form similarity p1 ~ S * p2: returns (s, R, t) with
-    p1 = s R p2 + t (Horn 1987 absolute orientation, quaternion form)."""
-    c1 = p1.mean(axis=0)
-    c2 = p2.mean(axis=0)
-    q1 = p1 - c1
-    q2 = p2 - c2
-    M = q2.T @ q1                             # (3, 3)
-    N = np.array(
-        [
-            [M[0, 0] + M[1, 1] + M[2, 2], M[1, 2] - M[2, 1], M[2, 0] - M[0, 2], M[0, 1] - M[1, 0]],
-            [M[1, 2] - M[2, 1], M[0, 0] - M[1, 1] - M[2, 2], M[0, 1] + M[1, 0], M[2, 0] + M[0, 2]],
-            [M[2, 0] - M[0, 2], M[0, 1] + M[1, 0], -M[0, 0] + M[1, 1] - M[2, 2], M[1, 2] + M[2, 1]],
-            [M[0, 1] - M[1, 0], M[2, 0] + M[0, 2], M[1, 2] + M[2, 1], -M[0, 0] - M[1, 1] + M[2, 2]],
-        ]
-    )
-    _, v = np.linalg.eigh(N)
-    w0, x, y, z = v[:, -1]                    # unit quaternion w, x, y, z
-    R = np.array(
-        [
-            [1 - 2 * (y * y + z * z), 2 * (x * y - w0 * z), 2 * (x * z + w0 * y)],
-            [2 * (x * y + w0 * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w0 * x)],
-            [2 * (x * z - w0 * y), 2 * (y * z + w0 * x), 1 - 2 * (x * x + y * y)],
-        ]
-    )
-    if fix_scale:
-        s = 1.0
-    else:
-        num = np.sum(q1 * (q2 @ R.T))
-        den = np.sum(q2 * q2)
-        s = float(num / max(den, 1e-12))
-    t = c1 - s * (R @ c2)
-    return s, R, t
+from ..place.sim3 import horn_sim3
 
 
 def load_kitti_trajectory(path: str) -> np.ndarray:

@@ -4,7 +4,7 @@ keyframes, 100 points, 0.25 px noise; a joint problem with one object seen
 by 4 keyframes), made from one numpy seed.
 
 Tolerances: poses within 1e-4 and points within 1e-3 after the 5 + 10
-iteration schedule (f32 normal equations summed in another order, through
+iteration schedule and after the global BA's single round of 10 (f32 normal equations summed in another order, through
 15 LM steps), equal inlier masks, object-edge Jacobians within 1e-5 of
 JAX's `jacfwd`.
 """
@@ -71,19 +71,21 @@ def pad_problem(poses, pts, k, p, uvr, K, P, O):
 
 
 def run_both(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr, obs_stereo,
-             obs_valid, obj_state=None):
+             obs_valid, obj_state=None, schedule=None):
     O = len(obs_kf)
     args = [kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr, obs_stereo,
             np.ones(O, np.float32), obs_valid, INTR]
+    kw = {} if schedule is None else {"schedule": schedule}
     j = jba.bundle_adjust(*[jnp.asarray(a) for a in args], 1e-3,
-                          None if obj_state is None else {k: jnp.asarray(v) for k, v in obj_state.items()})
+                          None if obj_state is None else {k: jnp.asarray(v) for k, v in obj_state.items()},
+                          **kw)
     t = tba.bundle_adjust(*[torch.from_numpy(a) for a in args], 1e-3,
-                          None if obj_state is None else {k: torch.from_numpy(v) for k, v in obj_state.items()})
+                          None if obj_state is None else {k: torch.from_numpy(v) for k, v in obj_state.items()},
+                          **kw)
     return {k: np.asarray(v) for k, v in j.items()}, {k: v.numpy() for k, v in t.items()}
 
 
-@pytest.fixture(scope="module")
-def noisy_geometry():
+def _noisy_problem():
     """test_refines_noisy_geometry's problem, plus 12 gross outliers and
     mono-only observations (u_right unobserved) on every third slot."""
     rng = np.random.default_rng(42)
@@ -101,8 +103,29 @@ def noisy_geometry():
     kf_fixed[0] = 1
     obs_stereo = np.ones(O, np.float32)
     obs_stereo[::3] = 0
-    j, t = run_both(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr, obs_stereo, obs_valid)
-    return j, t, poses_true, poses_init, pts_true, pts_init, len(k)
+    return (kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr, obs_stereo, obs_valid), \
+        (poses_true, poses_init, pts_true, pts_init, len(k))
+
+
+@pytest.fixture(scope="module")
+def noisy_geometry():
+    problem, extra = _noisy_problem()
+    j, t = run_both(*problem)
+    return (j, t) + extra
+
+
+def test_global_ba_schedule_matches_jax(noisy_geometry):
+    """schedule=(10,), the global BA's: one round of 10 iterations and no
+    outlier drop, against JAX on the same window; the default (5, 10) is
+    the fixture's run above."""
+    problem, _ = _noisy_problem()
+    j, t = run_both(*problem, schedule=(10,))
+    assert np.abs(t["kf_poses"] - j["kf_poses"]).max() <= 1e-4
+    assert np.abs(t["points"] - j["points"]).max() <= 1e-3
+    # no reclassification: every valid observation is still an inlier
+    np.testing.assert_array_equal(t["obs_inlier"], problem[-1])
+    np.testing.assert_array_equal(j["obs_inlier"], problem[-1])
+    assert not np.array_equal(t["kf_poses"], noisy_geometry[1]["kf_poses"])
 
 
 def test_refines_noisy_geometry_matches_jax(noisy_geometry):

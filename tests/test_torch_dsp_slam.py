@@ -7,6 +7,11 @@ Checked: the three map files parse (System_util.cc:109-149 formats);
 Cameras.txt within 1e-3 of the JAX run's (f32 pose GN summed in another
 order); the same map-point count; the object's Sim(3) row within 1e-3 and
 its code within 1e-3 of JAX's; the object ~10 m ahead of the first camera.
+With `--vocabulary` (a K=6, L=2 vocabulary trained on the fixture's first
+frame) and `--save_state`: loop closing is attached, the checkpoint holds
+the saved map, and `extract_map_objects --device cpu` re-decodes its
+MapObjects.txt to the same vertex and face counts as the JAX tool, with
+vertices within 1e-4.
 """
 
 import json
@@ -99,8 +104,8 @@ def test_cli_matches_jax(runs):
     assert np.linalg.norm(to[0][1][:3, 3] - np.array([2.5, 0.45, 10.0])) < 1.0
 
 
-@pytest.mark.parametrize("option", [["--vocabulary", "voc.npz"], ["--save_state", "s.npz"],
-                                    ["--overlay_dir", "o"], ["--live_view_dir", "v"]])
+@pytest.mark.parametrize("option", [["--overlay_dir", "o"], ["--live_view_dir", "v"],
+                                    ["--live_view_port", "8000"]])
 def test_unported_options_raise(option):
     from dspslam_tpu_torch.apps import dsp_slam as tdsp
 
@@ -115,3 +120,55 @@ def test_cli_defaults_to_the_card(tmp_path):
         pytest.skip("this checks the error raised without a card")
     with pytest.raises(RuntimeError, match="cuda"):
         tdsp.main(["--sequence_dir", FIXTURE, "--map_dir", str(tmp_path)])
+
+
+def test_vocabulary_save_state_and_mesh_export(tmp_path):
+    from dspslam_tpu.apps import extract_map_objects as jextract
+    from dspslam_tpu_torch.apps import dsp_slam as tdsp
+    from dspslam_tpu_torch.apps import extract_map_objects as textract
+    from dspslam_tpu_torch.datasets.kitti import KITTISequence
+    from dspslam_tpu_torch.frontend import orb
+    from dspslam_tpu_torch.place.vocabulary import Vocabulary
+    from dspslam_tpu_torch.slam import state_io
+
+    cfg = _config(tmp_path)
+    img, _ = KITTISequence(FIXTURE, None).load_stereo_gray(0)
+    f = orb.extract(torch.from_numpy(np.ascontiguousarray(img)), orb.ORBParams(n_features=1000, n_levels=4))
+    voc = Vocabulary.train(f["desc"].numpy().view(np.uint32)[f["valid"].numpy() > 0], branching=6, levels=2)
+    voc.save(str(tmp_path / "voc.npz"))
+    state = str(tmp_path / "state.npz")
+    ts = tdsp.main(["--sequence_dir", FIXTURE, "--config", cfg, "--map_dir", str(tmp_path / "map"),
+                    "--vocabulary", str(tmp_path / "voc.npz"), "--save_state", state, "--device", "cpu"])
+    assert ts.loop_closer is not None and ts.tracker.relocalizer is not None
+    assert ts.loop_closer.loops_closed == 0
+    assert set(ts.kf_db.vectors) == set(ts.map.keyframes)
+    loaded = state_io.load_state(state)
+    assert set(loaded.keyframes) == set(ts.map.keyframes) and len(loaded.objects) >= 1
+    loaded.check_invariants()
+
+    objs, meshes = textract.main(["--map_dir", str(tmp_path / "map"), "--config", cfg,
+                                  "--voxels_dim", "16", "--device", "cpu",
+                                  "--output_dir", str(tmp_path / "meshes_torch")])
+    jobjs = jextract.main(["--map_dir", str(tmp_path / "map"), "--config", cfg, "--voxels_dim", "16",
+                           "--output_dir", str(tmp_path / "meshes_jax")])
+    assert [o[0] for o in objs] == [o[0] for o in jobjs] and len(objs) >= 1
+    from dspslam_tpu_torch.utils import io as tio
+
+    for obj_id, Two, _ in objs:
+        jv, jf = tio.read_mesh_ply(str(tmp_path / "meshes_jax" / f"{obj_id}.ply"))
+        tv, tf = meshes[obj_id]["vertices"], meshes[obj_id]["faces"]
+        assert tv.shape == jv.shape and tf.shape == jf.shape and len(tv) > 0
+        np.testing.assert_allclose(tv, jv, atol=1e-4)
+        np.testing.assert_array_equal(np.load(str(tmp_path / "meshes_torch" / f"{obj_id}_pose.npy")), Two)
+
+
+def test_vocabulary_without_loop_attaches_relocalization_only(tmp_path):
+    from dspslam_tpu_torch import config as cfg_mod
+    from dspslam_tpu_torch.apps import dsp_slam as tdsp
+    from dspslam_tpu_torch.place.vocabulary import Vocabulary
+
+    voc = Vocabulary.train(np.random.default_rng(0).integers(0, 2**32, (500, 8), dtype=np.uint32),
+                           branching=4, levels=2)
+    s = tdsp.build_system(cfg_mod.SystemConfig(), None, enable_objects=False, device="cpu",
+                          vocabulary=voc, enable_loop=False)
+    assert s.loop_closer is None and s.tracker.relocalizer is not None and s.kf_db is not None

@@ -107,10 +107,13 @@ def test_cli_matches_jax(runs):
 
 
 def test_vocabulary_raises(tmp_path):
+    """`--vocabulary` loads the file it names (relocalization is ported):
+    a missing one raises before any frame is read."""
     from dspslam_tpu_torch.apps import dsp_slam_mono as tmono
 
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tmono.main(["--sequence_dir", str(tmp_path), "--device", "cpu", "--vocabulary", "voc.npz"])
+    with pytest.raises(FileNotFoundError):
+        tmono.main(["--sequence_dir", str(tmp_path), "--device", "cpu", "--vocabulary",
+                    str(tmp_path / "voc.npz")])
 
 
 def test_cli_defaults_to_the_card(tmp_path):

@@ -41,6 +41,10 @@ def test_port_has_sources():
     assert {
         "initializer.py", "cuboid.py", "mono.py", "mono_pipeline.py", "dsp_slam_mono.py",
     } <= names
+    assert {
+        "vocabulary.py", "orbvoc.py", "sim3.py", "loop_closing.py", "pose_graph.py", "pnp.py",
+        "relocalization.py", "state_io.py", "street_loop.py", "extract_map_objects.py",
+    } <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -222,11 +222,18 @@ def test_system_defaults_to_the_card():
 
 
 def test_unported_modes_raise():
-    """Loop closing and relocalization come with slice 5."""
+    """Loop closing and relocalization are ported (slice 5): they attach,
+    and the relocalizer and the loop closer share one keyframe database."""
+    from dspslam_tpu_torch.place.vocabulary import Vocabulary
+
+    voc = Vocabulary.train(np.random.default_rng(0).integers(0, 2**32, (300, 8), dtype=np.uint32),
+                           branching=4, levels=2)
     s = tsystem.SLAMSystem(device="cpu")
-    for call in (lambda: s.enable_loop_closing(None), lambda: s.attach_vocabulary(None)):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            call()
+    s.attach_vocabulary(voc)
+    assert s.tracker.relocalizer is not None and s.loop_closer is None
+    s.enable_loop_closing(voc)
+    assert s.loop_closer.db is s.kf_db is s.tracker.relocalizer.db
+    assert s.map.keyframe_erase_hooks == [s.kf_db.erase]
 
 
 def test_localization_mode_adds_no_keyframes():
