@@ -9,7 +9,9 @@ Port of dspslam_tpu/apps/dsp_slam.py. Usage:
         [--save_state map.npz] [--device cpu]
 
 The per-frame loop mirrors dsp_slam.cc:62-105: track stereo, feed each
-keyframe its object detections (offline labels), save the map and the
+keyframe its object detections (the online MaskRCNN and PointPillars on
+`--device` when the config says `detect_online`, else offline labels),
+save the map and the
 trajectory at the end, print median / mean tracking times. `--device`
 defaults to cuda; asking for cuda without a card is an error, never a
 silent run on the CPU. `--profile_dir` writes a torch.profiler trace.
@@ -48,7 +50,7 @@ def build_system(system_cfg: cfg_mod.SystemConfig, sequence, enable_objects=True
     """The SLAMSystem dsp_slam.cc builds from a SystemConfig: tracker and
     ORB settings from the camera and ORB sections, the object pipeline on
     the configured DeepSDF decoder (the analytic sphere decoder when no
-    experiment dir is configured), offline-label detections per keyframe;
+    experiment dir is configured), the sequence's detections per keyframe;
     with a vocabulary, relocalization and (enable_loop) loop closing.
     device None means cuda."""
     device = resolve_device("cuda" if device is None else str(device))
@@ -129,7 +131,7 @@ def main(argv=None):
     system_cfg = cfg_mod.SystemConfig.load(args.config) if args.config else cfg_mod.SystemConfig()
     if args.settings:
         system_cfg = cfg_mod.SystemConfig.from_reference_yaml(args.settings, base=system_cfg)
-    seq = KITTISequence(args.sequence_dir, system_cfg.detection)
+    seq = KITTISequence(args.sequence_dir, system_cfg.detection, device=device)
     voc = None
     if args.vocabulary:
         from ..place.vocabulary import Vocabulary

@@ -1,12 +1,12 @@
 """KITTI odometry sequence access: stereo images + velodyne + detections.
 
-A copy of dspslam_tpu/datasets/kitti.py with offline labels only: the
-reference's KITIISequence (reconstruct/kitti_sequence.py:219-273) and the
-dsp_slam.cc image loading loop:
-calibration from calib.txt, stereo pairs from image_2/image_3, raw
+Port of dspslam_tpu/datasets/kitti.py: the reference's KITIISequence
+(reconstruct/kitti_sequence.py:219-273) and the dsp_slam.cc image loading
+loop: calibration from calib.txt, stereo pairs from image_2/image_3, raw
 velodyne scans, timestamps from times.txt, and per-frame object
-measurements built from offline labels through
-objects.detections.build_frame_detections.
+measurements built through objects.detections.build_frame_detections from
+the online detectors (MaskRCNN and PointPillars on the sequence's device)
+or from offline labels.
 """
 
 from __future__ import annotations
@@ -15,24 +15,33 @@ import os
 
 import numpy as np
 
-from ..detect import offline
+from ..detect import maskrcnn, offline, pointpillars
 from ..objects import detections as det_mod
 from ..utils import io as io_mod
 
 
-def get_detectors(det_cfg, object_class: str = "cars"):
+def get_detectors(det_cfg, object_class: str = "cars", device=None,
+                  cfg_2d: maskrcnn.MaskRCNNConfig = maskrcnn.MaskRCNNConfig(),
+                  cfg_3d: pointpillars.PointPillarsConfig = pointpillars.PointPillarsConfig()):
     """Online-detector factory (reference reconstruct/__init__.py:1-13):
-    (None, None) for offline labels. The online detectors (MaskRCNN and
-    PointPillars) come with slice 6 and are not ported."""
+    (detector_2d, detector_3d) on `device` (None means cuda), or (None,
+    None) for offline labels. Configured weight paths that exist are
+    ingested from the reference's mmdet / mmdet3d checkpoints; otherwise
+    the networks carry seeded random weights."""
     if det_cfg is None or not getattr(det_cfg, "detect_online", False):
         return None, None
-    raise NotImplementedError(
-        "online detection (detect_online: MaskRCNN + PointPillars) comes with slice 6 "
-        "and is not ported; use offline labels (path_label_2d / path_label_3d)")
+    w2d = getattr(det_cfg, "weight_path_2d", None)
+    params_2d = maskrcnn.load_mmdet_checkpoint(w2d, cfg_2d) if w2d and os.path.exists(w2d) else None
+    det2d = maskrcnn.Detector2D(params=params_2d, cfg=cfg_2d, object_class=object_class, device=device)
+    w3d = getattr(det_cfg, "weight_path_3d", None)
+    params_3d = (pointpillars.load_mmdet3d_checkpoint(w3d, cfg_3d)
+                 if w3d and os.path.exists(w3d) else None)
+    det3d = pointpillars.Detector3D(params=params_3d, cfg=cfg_3d, device=device)
+    return det2d, det3d
 
 
 class KITTISequence:
-    def __init__(self, data_dir: str, detection_cfg=None):
+    def __init__(self, data_dir: str, detection_cfg=None, device=None):
         self.root = data_dir
         self.rgb_dir = os.path.join(data_dir, "image_2")
         self.rgb_right_dir = os.path.join(data_dir, "image_3")
@@ -49,7 +58,7 @@ class KITTISequence:
             f for f in os.listdir(self.rgb_dir) if f.endswith(".png")
         ] if os.path.isdir(self.rgb_dir) else []
         self.num_frames = len(frames)
-        get_detectors(detection_cfg)     # raises for online detection
+        self.detector_2d, self.detector_3d = get_detectors(detection_cfg, device=device)
 
     def timestamp(self, frame_id: int) -> float:
         if self.timestamps is not None and frame_id < len(self.timestamps):
@@ -72,12 +81,22 @@ class KITTISequence:
         )
 
     def get_frame_detections(self, frame_id: int, image_hw):
-        """Per-frame object measurements from cached labels
-        (kitti_sequence.py's FrameWithLiDAR.get_detections)."""
+        """Per-frame object measurements (kitti_sequence.py's
+        FrameWithLiDAR.get_detections): both online detectors, dispatched
+        together and then collected, when configured; otherwise cached-label
+        playback."""
         cfg = self.det_cfg
         velo = self.load_velodyne(frame_id)
-        boxes_3d = offline.load_labels_3d(cfg.path_label_3d, frame_id)
-        boxes_2d, masks_2d = offline.load_labels_2d(cfg.path_label_2d, frame_id)
+        if self.detector_3d is not None:
+            img = io_mod.load_image_rgb(os.path.join(self.rgb_dir, f"{frame_id:06d}.png"))
+            h3d = self.detector_3d.dispatch(velo)
+            h2d = self.detector_2d.dispatch(img)
+            boxes_3d = self.detector_3d.collect(h3d)
+            pred = self.detector_2d.collect(h2d)
+            boxes_2d, masks_2d = pred["pred_boxes"], pred["pred_masks"]
+        else:
+            boxes_3d = offline.load_labels_3d(cfg.path_label_3d, frame_id)
+            boxes_2d, masks_2d = offline.load_labels_2d(cfg.path_label_2d, frame_id)
         return det_mod.build_frame_detections(
             boxes_3d, masks_2d, boxes_2d, velo, self.K, self.invK,
             self.T_cam_velo, image_hw,

@@ -47,6 +47,11 @@ GBA_PT_CAP = 4096
 GBA_OBS_CAP = 16384
 GBA_OBJ_CAP = 16
 GBA_EDGE_CAP = 64
+# The global BA solves in float64 (the reference's g2o solves in double): a
+# window of monocular observations with one keyframe held leaves the scale
+# direction to the LM damping, and f32 rounding (the order of the card's
+# scatter-adds) moved the solution along it by centimetres (ROADMAP R6)
+GBA_DTYPE = torch.float64
 # essential-graph scale: the reference optimizes ALL keyframes
 # (Optimizer.cc:780); 2048 Sim(3) vertices covers KITTI-00 (~1.3k KFs).
 # Above PG_DENSE_MAX vertices the solve switches from the dense-normal-
@@ -751,6 +756,10 @@ class LoopCloser:
         without waiting for queued device work)."""
         return [to_torch(a, self.device) for a in arrays]
 
+    def _upload_gba(self, *arrays):
+        """_upload with the float arrays cast to the global BA's dtype."""
+        return [t if t.dtype == torch.int32 else t.to(GBA_DTYPE) for t in self._upload(*arrays)]
+
     # ------------------------------------------------------------------
     def _global_ba(self, kf, loop_kf):
         """Synchronous dispatch + apply (tests / direct callers)."""
@@ -862,13 +871,13 @@ class LoopCloser:
             if qn > 0:
                 obj_state = dict(zip(
                     ("poses", "fixed", "edge_kf", "edge_obj", "edge_Tco", "edge_valid"),
-                    self._upload(obj_poses, obj_fixed, edge_kf, edge_obj, edge_Tco, edge_valid),
+                    self._upload_gba(obj_poses, obj_fixed, edge_kf, edge_obj, edge_Tco, edge_valid),
                 ))
 
         out = ba.bundle_adjust(
-            *self._upload(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs,
-                          obs_stereo, obs_is2, obs_valid),
-            self.intrinsics, 1e-3, obj_state, schedule=(10,),
+            *self._upload_gba(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs,
+                              obs_stereo, obs_is2, obs_valid),
+            self.intrinsics.to(GBA_DTYPE), 1e-3, obj_state, schedule=(10,),
         )
         host, event = _prefetch_to_host({"out": out})
         return {
@@ -890,8 +899,8 @@ class LoopCloser:
         slot, kf_fixed = pending["slot"], pending["kf_fixed"]
         pslot, oslot = pending["pslot"], pending["oslot"]
         obj_fixed = pending["obj_fixed"]
-        new_poses = out["kf_poses"]
-        new_pts = out["points"]
+        new_poses = out["kf_poses"].astype(np.float32)
+        new_pts = out["points"].astype(np.float32)
         if not (np.isfinite(new_poses).all() and np.isfinite(new_pts).all()):
             return
         updates = {}
@@ -907,7 +916,7 @@ class LoopCloser:
                 updates[k] = (okf.T_cw.copy(), okf.T_cw.copy())
         moved_objs = set()
         if pending["has_objs"]:
-            new_obj = out["obj_poses"]
+            new_obj = out["obj_poses"].astype(np.float32)
             if np.isfinite(new_obj).all():
                 for o, i in oslot.items():
                     obj = self.map.objects.get(o)

@@ -80,8 +80,16 @@ def test_sequence_layout_loads():
     dets = seq.get_frame_detections(0, (160, 512))
     assert len(dets) == 1 and dets[0].mask is not None and len(dets[0].surface_points) >= 50
     assert np.all(np.abs(dets[0].surface_points - np.array([2.5, 0.45, 10.0])) < 1.3)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        KITTISequence(FIXTURE, DetectionConfig(**{**det, "detect_online": True}))
+    # detect_online builds both online detectors (full-width, seeded
+    # weights) on the sequence's device; tests/test_torch_detectors_online.py
+    # runs them
+    from dspslam_tpu_torch.detect import maskrcnn, pointpillars
+
+    online = KITTISequence(FIXTURE, DetectionConfig(**{**det, "detect_online": True}), device="cpu")
+    assert isinstance(online.detector_2d, maskrcnn.Detector2D)
+    assert isinstance(online.detector_3d, pointpillars.Detector3D)
+    assert online.detector_2d.cfg == maskrcnn.MaskRCNNConfig()
+    assert online.detector_3d.cfg == pointpillars.PointPillarsConfig()
 
 
 def test_cli_matches_jax(runs):

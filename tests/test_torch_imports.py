@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch port: no module of `dspslam_tpu_torch`
-(nor `chip_smoke.py`) imports JAX, the JAX package or OpenCV, checked on the
-source's syntax tree so that a lazy import inside a function counts too."""
+(nor `chip_smoke.py`) imports JAX, the JAX package, OpenCV or torchvision,
+checked on the source's syntax tree so that a lazy import inside a function
+counts too."""
 
 import ast
 import pathlib
@@ -8,8 +9,8 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-# the card's machine has no OpenCV either
-FORBIDDEN = ("jax", "jaxlib", "dspslam_tpu", "cv2")
+# the card's machine has no OpenCV and no torchvision either
+FORBIDDEN = ("jax", "jaxlib", "dspslam_tpu", "cv2", "torchvision")
 
 
 def _sources():
@@ -44,6 +45,9 @@ def test_port_has_sources():
     assert {
         "vocabulary.py", "orbvoc.py", "sim3.py", "loop_closing.py", "pose_graph.py", "pnp.py",
         "relocalization.py", "state_io.py", "street_loop.py", "extract_map_objects.py",
+    } <= names
+    assert {
+        "rotated_iou.py", "layers.py", "maskrcnn.py", "pointpillars.py", "benchmark_detectors.py",
     } <= names
 
 

@@ -1,5 +1,7 @@
 """Kernels K1 (csrc/decoder_fused.cu) and K2 (csrc/fast_score.cu) on the
-card, against their plain PyTorch versions. Every test here needs a CUDA device and skips without one. The
+card, against their plain PyTorch versions, and the online detectors
+(MaskRCNN, PointPillars; plain PyTorch, no kernel of their own) on the card
+against their CPU runs, stage by stage on identical inputs. Every test here needs a CUDA device and skips without one. The
 file imports neither JAX nor the JAX package, so on a machine with a card
 it runs without the JAX test harness:
 
@@ -144,3 +146,81 @@ def test_k2_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fast_score.fast_score_maps([img.half()])
     with pytest.raises(ValueError, match="one CUDA device"):
         fast_score.fast_score_maps([img, img.cpu()])
+
+
+@pytest.mark.cuda
+def test_detector2d_stages_on_the_card(cuda):
+    """MaskRCNN at a small width: the f32 backbone within 1e-4 of the CPU's
+    (largest value), the RPN's top-k and NMS fed the CPU's level outputs
+    pick the CPU's proposals (within 1e-3 px: exp may differ in its last
+    bit), the heads fed the CPU's proposals within 1e-4, the box NMS fed the
+    CPU's boxes and scores equal, and one dispatch free of host syncs."""
+    from dspslam_tpu_torch.detect import maskrcnn as mr
+
+    cfg = mr.MaskRCNNConfig(num_classes=4, stage_blocks=(1, 1, 1, 1), fpn_channels=32, fc_dim=64,
+                            rpn_pre_nms=64, rpn_post_nms=16, max_detections=5, backbone_dtype="float32")
+    params = mr.init_params(cfg)
+    on_card = mr.tree_map(lambda t: t.to(cuda), params)
+    img = torch.from_numpy(np.random.default_rng(1).uniform(0, 255, (96, 128, 3)).astype(np.float32))
+    hw = (96, 128)
+    feats = mr.resnet_fpn(params, mr.normalize_image(img), cfg)
+    feats_c = mr.resnet_fpn(on_card, mr.normalize_image(img.to(cuda)), cfg)
+    for a, b in zip(feats, feats_c):
+        assert (b.cpu() - a).abs().max().item() <= 1e-4 * a.abs().max().item()
+    levels = mr.rpn_heads(params, feats)
+    props, valid = mr.rpn_select(levels, [f.shape[-2:] for f in feats], hw, cfg)
+    props_c, valid_c = mr.rpn_select([(s.to(cuda), d.to(cuda)) for s, d in levels],
+                                     [f.shape[-2:] for f in feats], hw, cfg)
+    assert torch.equal(valid_c.cpu(), valid) and (props_c.cpu() - props).abs().max().item() <= 1e-3
+    head = mr.box_head(params, feats, props, valid, hw, cfg)
+    head_c = mr.box_head(on_card, [f.to(cuda) for f in feats], props.to(cuda), valid.to(cuda), hw, cfg)
+    for a, b in zip(head[:2] + head[3:], head_c[:2] + head_c[3:]):
+        assert (b.cpu() - a).abs().max().item() <= 1e-4 * max(a.abs().max().item(), 1.0)
+    sel = mr.select_boxes(head[0], head[1], head[2], cfg)
+    sel_c = mr.select_boxes(head[0].to(cuda), head[1].to(cuda), head[2].to(cuda), cfg)
+    for a, b in zip(sel, sel_c):
+        assert torch.equal(b.cpu(), a)
+    det = mr.Detector2D(params=params, cfg=cfg, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = det.dispatch(img.numpy())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert det.collect(handle)["pred_boxes"].shape[1] == 5
+
+
+@pytest.mark.cuda
+def test_detector3d_stages_on_the_card(cuda):
+    """PointPillars at a small width: the device pillar build on the card
+    equals the CPU's (coords, masks exactly, features within 1e-5: float
+    atomics), select_detections fed the CPU's outputs picks the CPU's boxes,
+    and one dispatch free of host syncs."""
+    from dspslam_tpu_torch.apps.benchmark_detectors import synthetic_scan
+    from dspslam_tpu_torch.detect import pointpillars as pp
+
+    cfg = pp.PointPillarsConfig(
+        pc_range=(0.0, -10.24, -3.0, 20.48, 10.24, 1.0), voxel_size=(0.32, 0.32, 4.0),
+        max_pillars=1024, max_points_per_pillar=16, pfn_channels=32, backbone_layers=(2, 2, 2),
+        backbone_channels=(32, 64, 128), fpn_channels=(32, 32, 32), nms_pre=64, max_detections=10)
+    scan = synthetic_scan(n=20_000, seed=2)
+    cpu = pp.Detector3D(cfg=cfg, device="cpu")
+    card = pp.Detector3D(cfg=cfg, device=cuda)
+    pil = pp.build_pillars_from_points(cpu.upload(scan), cfg)
+    pil_c = pp.build_pillars_from_points(card.upload(scan), cfg)
+    for k in ("coords", "mask", "pillar_mask"):
+        assert torch.equal(pil_c[k].cpu(), pil[k]), k
+    assert (pil_c["features"].cpu() - pil["features"]).abs().max().item() <= 1e-5
+    cls, deltas, dirs = pp.forward(cpu.params, pil, cfg)
+    boxes = pp.decode_boxes(deltas, cpu.anchors)
+    out = pp.select_detections(cls, boxes, dirs, cfg)
+    out_c = pp.select_detections(cls.to(cuda), boxes.to(cuda), dirs.to(cuda), cfg)
+    assert torch.equal(out_c[2].cpu(), out[2])
+    assert (out_c[0].cpu() - out[0]).abs().max().item() <= 1e-4
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = card.dispatch(scan)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert card.collect(handle).shape[1] == 7
