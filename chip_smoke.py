@@ -2,8 +2,9 @@
 from the repository's sources, checks each against its plain PyTorch
 version, drives single-frame object reconstruction, stereo tracking,
 object SLAM in stereo, mono and RGB-D, place recognition with loop
-closing, and the online detectors through their entry points, and times
-them.
+closing, the online detectors, the decoder fit with the benchmark's full
+workload, the detector and vocabulary trainers and the overlays through
+their entry points, and times them.
 
     python3 chip_smoke.py
 
@@ -39,14 +40,16 @@ Phases (any failure exits non-zero, and no result line is printed):
      over a 30-frame LayeredWorld street turn, non-pipelined and
      pipelined: 0 lost frames, ATE < 3% of travel, K2 launched once per
      frame tracked (plus once per re-tracked frame), poses within 1e-4 of a
-     run with FAST bound to K2's plain version, one chained frame program
+     run over the first 15 frames with FAST bound to K2's plain version, one
+     chained frame program
      free of host syncs (`torch.cuda.set_sync_debug_mode("error")`), the
      steady-state ms per frame and a `torch.profiler` table of the
      pipelined steady state;
   8. stereo object SLAM (slice 3) through its entry points:
-     a. `apps.benchmark_slam.main` (light workload: GT-derived sphere
-        detections, the sphere decoder, pipelined tracking, async joint BA)
-        at KITTI intrinsics, 376x1241, 2000 features, 8 levels, 40 frames
+     a. `apps.benchmark_slam.main` with `--workload legacy` (GT-derived
+        sphere detections, the sphere decoder, pipelined tracking, async
+        joint BA)
+        at KITTI intrinsics, 376x1241, 2000 features, 8 levels, 20 frames
         through a 30-degree turn: 0 lost frames, ATE < 3% of travel, every
         static object within 0.35 m of a true sphere centre, an applied
         local BA solve with a camera-object edge inlier; then the
@@ -75,7 +78,7 @@ Phases (any failure exits non-zero, and no result line is printed):
         not: two-view initialization within the first 10 frames, 0 frames
         lost after it, Sim(3)-aligned ATE < 3% of travel, K2 once per
         extracted frame (re-tracked frames included); mean and median fps,
-        p99 frame ms, stage times; one `--paced` run's drop rate at 25 fps;
+        p99 frame ms, stage times; a 20-frame `--paced` run's drop rate at 25 fps;
         a `torch.profiler` table of 4 pipelined frames, the Hamming
         matrices' time and peak memory at 4000 features, and one
         `track_frame_mono_chained` under set_sync_debug_mode("error");
@@ -90,7 +93,7 @@ Phases (any failure exits non-zero, and no result line is printed):
         renders through freiburg_001.json's lens, PNG, .npz labels) on the
         card and on the CPU, both with K2's FAST response:
         trajectory_tum.txt agrees within 1e-3 and the map files parse;
-     d. `SLAMSystem.track_rgbd`, fused and pipelined, over 24 frames of 9a's
+     d. `SLAMSystem.track_rgbd`, fused and pipelined, over 16 frames of 9a's
         sequence with its rendered depth images: 0 lost frames, ATE < 3% of
         travel, one K2 launch per frame.
  10. place recognition, relocalization and loop closing (slice 5) through
@@ -141,11 +144,45 @@ Phases (any failure exits non-zero, and no result line is printed):
         dispatched once per keyframe, K2 once per tracked frame, K1 exactly
         as the object GN calls need, the map files parse. Nothing downstream
         of a detector's discrete choice is compared between card and CPU.
-The last lines are JSON summaries of slice 5's and slice 6's numbers, the
-card, a JSON summary of the kernels (K1's and K2's `slam_launches` count
-phase 8b, their `mono_launches` phases 9b and 9a, `loop_slam_launches` /
-`loop_launches` phase 10, `detector_slam_launches` phase 11d) and
-{"ok": true, "device": {...}}.
+ 12. slice 7 (the decoder fit and the full workload, the detector trainers,
+     the vocabulary trainer, the overlays) through their entry points:
+     a. `deepsdf_train.fit_spheres` at `benchmark_slam.train_bench_decoder`'s
+        shapes (the canonical decoder, 5 shapes, batch 8192, 600 steps): each
+        code's surface along +x within 0.05 m of its radius; one `train_step`
+        on the card and on the CPU from the same seeded state and numpy
+        batch (loss within 1e-5 relative; each device's gradients against a
+        float64 step's, the card's largest error over the tensors within
+        twice the CPU's or 1e-4 of a tensor's largest entry); the exported
+        experiment dir through `load_torch_checkpoint` gives equal outputs;
+        the steady ms per step;
+     b. `apps.benchmark_slam.main(["--frames", "56"])`, the full workload
+        (bench.py's 56 frames, 18 warm-up): Mask R-CNN and PointPillars at
+        full width on every keyframe inside the measured loop, the decoder
+        fitted at startup: 0 lost frames, ATE < 3% of travel, every static
+        object within 0.35 m, at least one mesh, live chamfer <= 15 cm (the
+        JAX package's TPU marks printed beside it); each detector
+        dispatched once per detection call, K1 exactly as the object GN
+        calls need, K2 once per frame plus once per re-tracked frame; mean
+        and median fps, p95 frame ms, stage times, and a `torch.profiler`
+        table of frames 10-14 with K1's and the detectors' device time;
+     c. the closed loops of tests/test_detector_closed_loop.py (slow there)
+        with the port's trainers on the card under that file's assertions,
+        with deterministic algorithms (a seed gives one result in every
+        run): Mask R-CNN 600 steps, PointPillars 320 steps, the BN trainer
+        600 steps on 4 unseen scenes; one Mask R-CNN loss and gradient card vs
+        CPU (1e-4 relative, 1e-3 of each tensor's largest gradient); ms per
+        step of each trainer;
+     d. `apps.train_vocabulary.main` over 10 of phase 7's left frames as PNG
+        (branching 4, 3 levels): one K2 launch per image; then
+        `apps.dsp_slam.main --vocabulary` with it over mini-KITTI;
+     e. `apps.dsp_slam.main --overlay_dir --pipeline` over mini-KITTI: one
+        PNG per finished frame, each the shape of its frame.
+The last lines are JSON summaries of slice 5's, slice 6's and slice 7's
+numbers, the card, a JSON summary of the kernels (K1's and K2's
+`slam_launches` count phase 8b, their `mono_launches` phases 9b and 9a,
+`loop_slam_launches` / `loop_launches` phase 10, `detector_slam_launches`
+phase 11d, `full_arm_launches` phase 12b, K2's `vocabulary_launches` 12d)
+and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -170,6 +207,7 @@ if not torch.cuda.is_available():
 
 from dspslam_tpu_torch.apps import (  # noqa: E402
     benchmark_detectors, benchmark_slam, dsp_slam, dsp_slam_mono, extract_map_objects, reconstruct_frame,
+    train_vocabulary,
 )
 from dspslam_tpu_torch.backend import ba, pose_graph  # noqa: E402
 from dspslam_tpu_torch.config import SystemConfig  # noqa: E402
@@ -178,10 +216,12 @@ from dspslam_tpu_torch.datasets.mono import build_mono_detection  # noqa: E402
 from dspslam_tpu_torch.datasets.synthetic import (  # noqa: E402
     blob_images, kitti_turn_sequence, render_stereo_u8,
 )
-from dspslam_tpu_torch.detect import maskrcnn, offline, pointpillars  # noqa: E402
+from dspslam_tpu_torch.detect import (  # noqa: E402
+    layers, maskrcnn, maskrcnn_train, offline, pointpillars, pointpillars_train,
+)
 from dspslam_tpu_torch.frontend import matcher, orb, undistort  # noqa: E402
 from dspslam_tpu_torch.kernels import _nvcc, decoder_fused, fast_score  # noqa: E402
-from dspslam_tpu_torch.models import deepsdf  # noqa: E402
+from dspslam_tpu_torch.models import deepsdf, deepsdf_train  # noqa: E402
 from dspslam_tpu_torch.objects.mono_pipeline import MonoObjectPipeline  # noqa: E402
 from dspslam_tpu_torch.place import loop_closing  # noqa: E402
 from dspslam_tpu_torch.place.vocabulary import Vocabulary  # noqa: E402
@@ -690,6 +730,9 @@ def trajectory_wc(tr) -> np.ndarray:
     return np.stack([np.linalg.inv(T.astype(np.float64)) for _, T, _ in tr.trajectory])
 
 
+PLAIN_FRAMES = 15
+
+
 def phase_tracking(system_cfg, images, poses, name: str) -> dict:
     n = len(images)
     travel = float(np.linalg.norm(np.diff(poses[:, :3, 3], axis=0), axis=1).sum())
@@ -714,13 +757,14 @@ def phase_tracking(system_cfg, images, poses, name: str) -> dict:
         check(ate < 0.03 * travel, f"{form}: ATE {ate} m >= 3% of {travel} m")
         check(launches == n + tr.n_redone,
               f"{form}: K2 launched {launches} times, expected one per frame: {n} + {tr.n_redone}")
-        # the same drive with FAST bound to K2's plain version
+        # the same drive with FAST bound to K2's plain version, over the
+        # first PLAIN_FRAMES frames (the whole turn no longer fits the smoke's time limit)
         with mock.patch.object(fast_score, "fast_score_maps", fast_score.fast_score_maps_plain):
-            ref, _, _ = run_tracker(system_cfg, images, pipelined)
+            ref, _, _ = run_tracker(system_cfg, images[:PLAIN_FRAMES], pipelined)
         dT = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(tr.trajectory, ref.trajectory))
-        check(len(ref.trajectory) == n and dT <= 1e-4, f"{form}: K2 and plain paths differ by {dT}")
+        check(len(ref.trajectory) == PLAIN_FRAMES and dT <= 1e-4, f"{form}: K2 and plain paths differ by {dT}")
         med = float(np.median(walls[5:])) * 1e3
-        print(f"[7] {form}: K2 vs plain-FAST run, max |d T_cw| over {n} frames {dT:.3e}; "
+        print(f"[7] {form}: K2 vs plain-FAST run, max |d T_cw| over the first {PLAIN_FRAMES} frames {dT:.3e}; "
               f"steady state (frames 5..{n - 1}): median call {med:.3f} ms, "
               f"synchronised wall {steady * 1e3:.3f} ms/frame on {name}")
         out[form] = {"median_ms": med, "wall_ms": steady * 1e3, "ate": ate, "tracker": tr}
@@ -773,17 +817,22 @@ def phase_profile(system_cfg, images, wall_ms_per_frame: float):
     print(events.table(sort_by=key, row_limit=25))
 
 
+# 8a's depth: 20 frames (not the JAX benchmark's 40) keep the smoke inside
+# its time limit on a slow host; the turn starts at frame 10
+LEGACY_FRAMES = 20
+
+
 def phase_slam_accuracy(name: str) -> dict:
-    """8a: the port's benchmark_slam (stereo arm, light workload) at KITTI
-    intrinsics, 376x1241, 2000 features, 8 levels, 40 frames through the
+    """8a: the port's benchmark_slam (stereo arm, `--workload legacy`) at KITTI
+    intrinsics, 376x1241, 2000 features, 8 levels, 20 frames into the
     30-degree turn: joint BA, pipelined tracking, async BA; then the
     points-only BA arm (--ba_no_objects) as the A/B."""
     fast_score.fast_score_maps.launches = 0
     decoder_fused.sdf_and_input_grad.launches = 0
-    rec = benchmark_slam.main(["--frames", "40"])
+    rec = benchmark_slam.main(["--frames", str(LEGACY_FRAMES), "--workload", "legacy"])
     k2, k1 = fast_score.fast_score_maps.launches, decoder_fused.sdf_and_input_grad.launches
     limit = 0.03 * rec["travel_m"]
-    print(f"[8a] benchmark_slam, 40 frames (joint BA): {rec['lost_frames']} lost, ATE "
+    print(f"[8a] benchmark_slam, {LEGACY_FRAMES} frames (joint BA): {rec['lost_frames']} lost, ATE "
           f"{rec['ate_rmse_cm']:.4f} cm over {rec['travel_m']:.2f} m; {rec['n_keyframes']} keyframes, "
           f"{rec['n_points']} map points, {rec['n_objects']} objects ({rec['n_static']} static, "
           f"errors {[round(e, 4) for e in rec['static_obj_errs_m']]} m; {rec['n_dynamic']} dynamic, "
@@ -799,7 +848,7 @@ def phase_slam_accuracy(name: str) -> dict:
     check(any(b["edge_inliers"] >= 1 for b in rec["ba_solves"]),
           "8a: no applied local BA solve with a camera-object edge inlier")
     check(k2 > 0 and k1 == 0, f"8a: K2 launched {k2} times, K1 {k1}")
-    ab = benchmark_slam.main(["--frames", "40", "--ba_no_objects"])
+    ab = benchmark_slam.main(["--frames", str(LEGACY_FRAMES), "--workload", "legacy", "--ba_no_objects"])
     print(f"[8a] A/B: ATE joint BA {rec['ate_rmse_cm']:.4f} cm vs points-only {ab['ate_rmse_cm']:.4f} cm; "
           f"static object error {rec['obj_center_err_cm']} vs {ab['obj_center_err_cm']} cm; "
           f"{ab['lost_frames']} lost points-only")
@@ -1069,6 +1118,7 @@ class SphereScene:
 
 
 MONO_FRAMES = 40
+PACED_FRAMES = 20     # the paced run only measures a drop rate
 SPHERE_STEP = 0.15
 SPHERE_FRAMES = 26
 FREIBURG_CONFIG = "configs/freiburg_001.json"
@@ -1153,7 +1203,7 @@ def phase_mono_tracking(name: str) -> dict:
               f"9a {form}: K2 launched {k2} times, expected {rec['frames_tracked']} + {rec['n_redone']}")
         check(k1 == 0, f"9a {form}: K1 ran on the mono tracking path")
         out[form] = rec
-    paced = benchmark_slam.main(base + ["--paced"])
+    paced = benchmark_slam.main(["--mono", "--mono_profile", "freiburg", "--frames", str(PACED_FRAMES), "--paced"])
     print(f"[9a] mono pipelined, paced at 25 fps: drop rate {paced['drop_rate']:.4f} "
           f"({paced['frames_tracked']} frames tracked of {paced['frames']}), {paced['value']:.3f} fps mean on "
           f"the frames it took, {paced['lost_after_init']} lost after initialization on {name}")
@@ -1406,12 +1456,12 @@ def phase_mono_cli(tmp: str, name: str):
 
 
 def phase_rgbd(name: str) -> int:
-    """9d: SLAMSystem.track_rgbd fused and pipelined over the first 24
-    frames of the mono arm's 40-frame sequence (its view yaw starts at
-    frame 13) with the true depth images (Freiburg's camera, bf = 0.5 fx,
-    the mono arm's 25 px motion search): 0 lost frames, ATE < 3% of travel,
-    one K2 launch per frame."""
-    n = 24
+    """9d: SLAMSystem.track_rgbd fused and pipelined over the first 16
+    frames of the mono arm's 40-frame sequence (its view yaw
+    starts at frame 13) with the true depth images (Freiburg's camera, bf =
+    0.5 fx, the mono arm's 25 px motion search): 0 lost frames, ATE < 3% of
+    travel, one K2 launch per frame."""
+    n = 16
     world, cam, poses = benchmark_slam.mono_sequence("freiburg", MONO_FRAMES)
     w, h, fx, cx, cy = cam
     frames = [(np.clip(world.render_pose(T), 0, 255).astype(np.uint8), world.depth_map_pose(T))
@@ -2052,9 +2102,384 @@ def phase_detect_online(tmp: str, name: str) -> dict:
     return {"k1_launches": k1, "k2_launches": k2, "keyframes": n_kf, "objects": len(objs), "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: slice 7 (the decoder fit and the full workload, the detector
+# trainers, the vocabulary trainer and the overlays)
+
+# one train_step card vs CPU from the same parameters and batch. Both run f32
+# with TF32 off; the weight gradients are sums over the 8192 rows with heavy
+# cancellation (the L1 gradient is a sign per row), so the two devices'
+# summation orders differ by up to ~1e-4 of a tensor's largest entry (the
+# card's first calls: 2.8e-4, 99th percentile 2.0e-4). Each device is held
+# against a float64 gradient of the same step instead: the card's largest
+# error over the tensors must be as small as the CPU's, within a factor
+# and a floor (which tensor errs most differs between the two orders).
+FIT_LOSS_TOL = 1e-5           # relative, card vs CPU
+FIT_GRAD_FACTOR, FIT_GRAD_FLOOR = 2.0, 1e-4    # of max |d| / max |g64| over the tensors
+# the fit must place each shape's surface (radii 0.3 .. 0.7, 0.1 apart)
+FIT_RADIUS_TOL = 0.05         # m, along +x in the canonical frame
+
+
+def grad_errs(ref: list, other: list) -> list:
+    """max |d| / max |ref| per tensor."""
+    return [rel_err(r.double(), o.double()) for r, o in zip(ref, other)]
+
+
+def phase_decoder_fit(tmp: str, name: str) -> dict:
+    """12a: deepsdf_train.fit_spheres at train_bench_decoder's shapes (the
+    canonical decoder, 5 shapes, batch 8192, 600 steps, seed 0); each code's
+    surface along +x; one train_step card vs CPU from the same seeded state
+    and numpy batch (loss and every gradient); the exported experiment dir
+    through load_torch_checkpoint (equal outputs)."""
+    cfg = benchmark_slam.BENCH_DECODER
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec, codes, loss = deepsdf_train.fit_spheres(cfg, num_shapes=5, steps=600, batch=8192, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    r = torch.linspace(0.05, 0.95, 901, device=DEV)
+    radii = []
+    for k in range(5):
+        sdf = dec(torch.cat([codes[k].expand(len(r), cfg.code_len), r[:, None], torch.zeros(len(r), 2, device=DEV)],
+                            dim=-1))
+        inside = torch.nonzero(sdf > 0)
+        radii.append(float(r[int(inside[0])]) if len(inside) else float("nan"))
+    print(f"[12a] fit_spheres (canonical decoder, 5 shapes, batch 8192, 600 steps): {fit_s:.3f} s "
+          f"({fit_s / 600 * 1e3:.3f} ms per step incl. the first step's setup), final L1 {loss:.6f}; surfaces "
+          f"along +x at {[round(x, 4) for x in radii]} for radii 0.3 .. 0.7 on {name}")
+    check(np.isfinite(loss), f"12a: final loss {loss}")
+    check(all(abs(x - (0.3 + 0.1 * k)) < FIT_RADIUS_TOL for k, x in enumerate(radii)),
+          f"12a: decoded radii {radii}")
+
+    rng = np.random.default_rng(12)
+    idx = rng.integers(0, 5, 8192)
+    xyz = rng.uniform(-1, 1, (8192, 3)).astype(np.float32)
+    batch_np = {"shape_idx": idx, "xyz": xyz,
+                "sdf": (np.linalg.norm(xyz, axis=-1) - (0.3 + 0.1 * idx)).astype(np.float32)}
+    out = []
+    for dev, dtype in ((DEV, torch.float32), (torch.device("cpu"), torch.float32), (torch.device("cpu"), torch.float64)):
+        st = deepsdf_train.init_state(cfg, 5, seed=0, device=dev)
+        st.decoder.to(dtype)
+        st.codes.data = st.codes.data.to(dtype)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        batch = {k: v.to(dtype) if v.is_floating_point() else v for k, v in batch.items()}
+        t0 = time.perf_counter()
+        step_loss = deepsdf_train.train_step(st, batch, clamp=0.5)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out.append((float(step_loss), [p.grad for p in st.decoder.parameters()] + [st.codes.grad], st,
+                    (time.perf_counter() - t0) * 1e3))
+    (l_g, g_g, st_g, ms_g), (l_c, g_c, _, ms_c), (l_64, g_64, _, _) = out
+    l_err = abs(l_g - l_c) / abs(l_c)
+    e_card, e_cpu = grad_errs(g_64, g_g), grad_errs(g_64, g_c)
+    e_cc = grad_errs(g_c, g_g)
+    print(f"[12a] one train_step card vs CPU (seeded state, numpy batch of 8192): loss {l_g:.8f} vs {l_c:.8f} "
+          f"(rel {l_err:.3e}; float64 {l_64:.8f}); gradients over {len(g_c)} tensors, max |d| / max |g|: card vs "
+          f"CPU up to {max(e_cc):.3e}, card vs float64 up to {max(e_card):.3e}, CPU vs float64 up to "
+          f"{max(e_cpu):.3e}; {ms_g:.3f} ms on the card (first step), {ms_c:.1f} ms on the CPU")
+    check(l_err <= FIT_LOSS_TOL, f"12a: train_step loss card vs CPU rel {l_err}")
+    check(max(e_card) <= max(FIT_GRAD_FACTOR * max(e_cpu), FIT_GRAD_FLOOR),
+          f"12a: train_step gradients: card {e_card} vs CPU {e_cpu} from float64")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        deepsdf_train.train_step(st_g, {k: torch.from_numpy(v).to(DEV) for k, v in batch_np.items()})
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 20 * 1e3
+
+    exp = os.path.join(tmp, "fitted")
+    deepsdf_train.export_reference_format(st_g, exp)
+    cfg2, dec2 = deepsdf.load_torch_checkpoint(exp, device=DEV)
+    x = torch.from_numpy(rng.normal(0, 0.4, (4096, cfg.in_dim)).astype(np.float32)).to(DEV)
+    with torch.no_grad():
+        d_exp = float((dec2(x) - st_g.decoder(x)).abs().max())
+    print(f"[12a] steady train_step {step_ms:.3f} ms (mean of 20, synchronized); export -> "
+          f"load_torch_checkpoint: {cfg2 == cfg}, outputs max |d| {d_exp:.3e}")
+    check(cfg2 == cfg and d_exp == 0.0, f"12a: exported decoder differs by {d_exp} ({cfg2})")
+    return {"fit_s": fit_s, "l1": loss, "radii": radii, "step_ms": step_ms, "loss_rel_err": l_err,
+            "grad_err_card_vs_cpu": max(e_cc), "grad_err_card_vs_f64": max(e_card), "grad_err_cpu_vs_f64": max(e_cpu)}
+
+
+JAX_TPU_FULL_MARKS = {"ate_cm": 1.4, "chamfer_cm": 5.47}     # BENCH_r04, another machine: accuracy marks
+FULL_FRAMES = 56                # bench.py's full workload (bench.py:149-157); 18 warm-up frames
+FULL_PROFILE_FRAMES = range(10, 15)     # inside the warm-up, so outside the steady-state record
+FULL_CHAMFER_CM = 15.0
+
+
+def phase_full_arm(name: str) -> dict:
+    """12b: benchmark_slam.main(["--frames", "56"]), the full workload: both
+    detectors at full width on every keyframe inside the measured loop, the
+    canonical DeepSDF fitted to spheres at startup (600 steps) so the object
+    GN runs K1 on trained weights, live and 64^3 refined chamfer. Frames
+    10-14 (inside the warm-up) run under torch.profiler with the detectors'
+    calls marked."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    calls, prof = [0], {}
+    track = SLAMSystem.track_stereo
+
+    def profiled_track(self, img_l, img_r, timestamp):
+        k = calls[0]
+        calls[0] += 1
+        if k == FULL_PROFILE_FRAMES[0]:
+            torch.cuda.synchronize()
+            prof["p"] = torch.profiler.profile(activities=acts)
+            prof["p"].start()
+            prof["t0"] = time.perf_counter()
+        out = track(self, img_l, img_r, timestamp)
+        if k == FULL_PROFILE_FRAMES[-1]:
+            torch.cuda.synchronize()
+            prof["wall_ms"] = (time.perf_counter() - prof["t0"]) * 1e3
+            prof["p"].stop()
+        return out
+
+    def marked(label, fn):
+        def run(self, *args):
+            with torch.profiler.record_function(label):
+                return fn(self, *args)
+        return run
+
+    fast_score.fast_score_maps.launches = 0
+    decoder_fused.sdf_and_input_grad.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(SLAMSystem, "track_stereo", profiled_track), \
+            mock.patch.object(maskrcnn.Detector2D, "dispatch", marked("maskrcnn", maskrcnn.Detector2D.dispatch)), \
+            mock.patch.object(pointpillars.Detector3D, "dispatch",
+                              marked("pointpillars", pointpillars.Detector3D.dispatch)):
+        rec = benchmark_slam.main(["--frames", str(FULL_FRAMES)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = decoder_fused.sdf_and_input_grad.launches, fast_score.fast_score_maps.launches
+    limit = 0.03 * rec["travel_m"]
+    disp = rec["detector_dispatches"]
+    print(f"[12b] benchmark_slam --frames {FULL_FRAMES} (full workload: Mask R-CNN + PointPillars at full width "
+          f"on every keyframe, the fitted canonical DeepSDF; {rec['warmup']} warm-up frames) in {wall:.1f} s: "
+          f"{rec['lost_frames']} lost, ATE {rec['ate_rmse_cm']:.4f} cm over {rec['travel_m']:.2f} m (JAX TPU mark "
+          f"{JAX_TPU_FULL_MARKS['ate_cm']} cm); {rec['n_keyframes']} keyframes, {rec['n_points']} map points, "
+          f"{rec['n_objects']} objects ({rec['n_static']} static, errors "
+          f"{[round(e, 4) for e in rec['static_obj_errs_m']]} m; {rec['n_dynamic']} dynamic, "
+          f"{rec['dynamic_obj_err_cm']} cm, prediction {rec['dynamic_pred_err_cm']} cm); live mesh chamfer "
+          f"{rec['mesh_chamfer_cm']} cm over {rec['n_meshes']} meshes (JAX TPU mark "
+          f"{JAX_TPU_FULL_MARKS['chamfer_cm']} cm), 64^3 refined {rec['mesh_chamfer_refined_cm']} cm on {name}")
+    print(f"[12b] {rec['value']:.4f} fps mean, {rec['median_fps']:.4f} median, frame ms p95 "
+          f"{rec['frame_ms_p95']:.3f}, max {rec['max_frame_ms']:.3f}; decoder fit {rec['decoder_fit']}; detector "
+          f"calls {rec['detector_calls']}, dispatches {disp}, boxes collected {rec['detector_boxes']}; GN calls "
+          f"{rec['gn_dispatches']}; K1 launches {k1} (expected {rec['expected_k1_launches']}), K2 launches {k2} "
+          f"({FULL_FRAMES} frames + {rec['n_redone']} re-tracked)")
+    print("[12b] stages, host ms (p50 / p95 / total / count): " + "; ".join(
+        f"{k} {v['p50']:.3f} / {v['p95']:.3f} / {v['total']:.3f} / {v['n']}" for k, v in sorted(rec["stage_ms"].items())))
+    check(rec["lost_frames"] == 0, f"12b: {rec['lost_frames']} lost frames")
+    check(rec["ate_rmse_cm"] / 100 < limit, f"12b: ATE {rec['ate_rmse_cm']} cm >= 3% of {rec['travel_m']} m")
+    check(rec["n_static"] >= 1 and max(rec["static_obj_errs_m"]) < 0.35,
+          f"12b: static objects {rec['static_obj_errs_m']} (need >= 1, each < 0.35 m)")
+    check(rec["n_meshes"] >= 1 and rec["mesh_chamfer_cm"] <= FULL_CHAMFER_CM,
+          f"12b: {rec['n_meshes']} meshes, live chamfer {rec['mesh_chamfer_cm']} cm (limit {FULL_CHAMFER_CM})")
+    check(disp["maskrcnn"] == disp["pointpillars"] == rec["detector_calls"] >= rec["n_keyframes"] >= 1,
+          f"12b: detectors dispatched {disp} for {rec['detector_calls']} detection calls, "
+          f"{rec['n_keyframes']} keyframes")
+    check(k1 == rec["expected_k1_launches"] > 0, f"12b: K1 launched {k1} times, expected {rec['expected_k1_launches']}")
+    check(k2 == FULL_FRAMES + rec["n_redone"], f"12b: K2 launched {k2} times, expected {FULL_FRAMES} + {rec['n_redone']}")
+
+    check("p" in prof, "12b: frames 10-14 were not profiled")
+    events = prof["p"].key_averages()
+    key, busy = device_ms(events)
+    k1_events = [e for e in events if "decoder_fused_kernel" in e.key]
+    k1_ms = device_ms(k1_events)[1] if k1_events else 0.0
+    total_key = key.replace("self_", "")
+    shares = {}
+    for label in ("maskrcnn", "pointpillars"):
+        rows = [e for e in events if e.key == label]
+        shares[label] = getattr(rows[0], total_key) / 1e3 if rows else None
+    print(f"[12b] profile of frames {FULL_PROFILE_FRAMES[0]}-{FULL_PROFILE_FRAMES[-1]} (wall {prof['wall_ms']:.3f} ms "
+          f"under the profiler): device busy {busy:.3f} ms, idle share {1 - busy / prof['wall_ms']:.3f}; K1 "
+          f"{k1_ms:.3f} ms ({k1_ms / max(busy, 1e-9):.3f} of the busy time); device time under the detectors' "
+          f"dispatch calls: Mask R-CNN {shares['maskrcnn']} ms, PointPillars {shares['pointpillars']} ms")
+    print(events.table(sort_by=key, row_limit=15))
+    return {"record": {k: v for k, v in rec.items() if k not in ("ba_solves", "stage_ms")},
+            "stage_ms": rec["stage_ms"], "k1_launches": k1, "k2_launches": k2, "wall_s": wall,
+            "profile": {"wall_ms": prof["wall_ms"], "busy_ms": busy, "k1_ms": k1_ms, **{f"{k}_ms": v for k, v in
+                                                                                    shares.items()}}}
+
+
+# one Mask R-CNN train_step card vs CPU (float32 backbone, TF32 off)
+MR_STEP_LOSS_TOL = 1e-4      # relative
+MR_STEP_GRAD_TOL = 1e-3      # max |d| / max |g| per tensor
+
+
+def step_ms(fn, steps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def phase_closed_loops(name: str) -> dict:
+    """12c: the closed loops of tests/test_detector_closed_loop.py (slow
+    there) with the port's trainers on the card, under that file's
+    assertions (the trainers' `closed_loop_report` / `cross_scene_report`)
+    and with deterministic algorithms, so that a seed gives one result in
+    every run; one Mask R-CNN train_step card vs CPU; ms per step of each
+    trainer."""
+    out = {}
+    cfg = maskrcnn_train.small_config()
+    t0 = time.perf_counter()
+    with layers.deterministic():
+        params, img, gt, gt_masks = maskrcnn_train.overfit_scene(cfg, steps=600, seed=0, device=DEV)
+        det = maskrcnn.Detector2D(params=params, cfg=cfg, device=DEV).make_prediction(img)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    rep = maskrcnn_train.closed_loop_report(det["pred_boxes"], det["pred_masks"], gt, gt_masks)
+    print(f"[12c] Mask R-CNN closed loop (small config, 600 steps, deterministic, {fit_s:.1f} s with the "
+          f"prediction): {rep['detections']} detections for {len(gt)} planted; box IoU "
+          f"{[round(x, 4) for x in rep['box_iou']]}, mask IoU {[round(x, 4) for x in rep['mask_iou']]}, best "
+          f"overlap of each detection {[round(x, 4) for x in rep['overlap']]}")
+    check(rep["found"], f"12c: Mask R-CNN recovered boxes {rep['box_iou']}, masks {rep['mask_iou']}")
+    check(rep["clean"], f"12c: a spurious Mask R-CNN detection ({rep['overlap']})")
+
+    # one train_step card vs CPU from the same seeded weights and targets
+    rng = np.random.default_rng(0)
+    s_img, s_gt, s_masks = maskrcnn_train.make_scene(rng)
+    hw = s_img.shape[:2]
+    base = maskrcnn.init_params(cfg, torch.Generator().manual_seed(0))
+    res = []
+    for dev in (DEV, torch.device("cpu")):
+        targets = maskrcnn_train.build_targets(np.random.default_rng(1), s_gt, s_masks, hw, cfg, dev)
+        p = layers.trainable(base, dev)
+        loss, _ = maskrcnn_train.loss_fn(p, torch.from_numpy(s_img).to(dev), targets, hw, cfg)
+        loss.backward()
+        res.append((loss.item(), [t.grad for t in layers.leaves(p)]))
+    l_err = abs(res[0][0] - res[1][0]) / abs(res[1][0])
+    g_err = max(grad_errs(res[1][1], res[0][1]))
+    opt_p = layers.trainable(base, DEV)
+    opt = layers.Trainer(layers.leaves(opt_p), 1e-3)
+    t_img = torch.from_numpy(s_img).to(DEV)
+    targets = maskrcnn_train.build_targets(np.random.default_rng(1), s_gt, s_masks, hw, cfg, DEV)
+    mr_ms = step_ms(lambda: maskrcnn_train.train_step(opt_p, opt, t_img, targets, hw, cfg), 20)
+    print(f"[12c] Mask R-CNN loss card vs CPU: {res[0][0]:.8f} vs {res[1][0]:.8f} (rel {l_err:.3e}); gradients "
+          f"|d| / max |g| up to {g_err:.3e} over {len(res[0][1])} tensors; "
+          f"train_step {mr_ms:.3f} ms (mean of 20, synchronized)")
+    check(l_err <= MR_STEP_LOSS_TOL and g_err <= MR_STEP_GRAD_TOL,
+          f"12c: Mask R-CNN step card vs CPU: loss {l_err}, gradients {g_err}")
+    out["maskrcnn"] = {"fit_s": fit_s, "box_iou": rep["box_iou"], "mask_iou": rep["mask_iou"],
+                       "detections": rep["detections"], "step_ms": mr_ms, "loss_rel_err": l_err,
+                       "grad_rel_err": g_err}
+
+    pcfg = pointpillars_train.small_config()
+    t0 = time.perf_counter()
+    with layers.deterministic():
+        pparams, scan, pgt = pointpillars_train.overfit_scene(pcfg, steps=320, seed=0, device=DEV)
+        boxes = pointpillars.Detector3D(params=pparams, cfg=pcfg, device=DEV).make_prediction(scan)
+    torch.cuda.synchronize()
+    pfit_s = time.perf_counter() - t0
+    prep = pointpillars_train.closed_loop_report(boxes, pgt, pcfg)
+    print(f"[12c] PointPillars closed loop (small config, 320 steps, deterministic, {pfit_s:.1f} s with the "
+          f"prediction): {prep['detections']} detections for {len(pgt)} planted; centre distances "
+          f"{[round(d, 4) for d in prep['dists']]} m, each detection's nearest planted "
+          f"{[round(d, 4) for d in prep['far']]} m; size errors w {prep['w_err']:.4f}, l {prep['l_err']:.4f} m")
+    check(prep["found"], f"12c: PointPillars recovered {prep['dists']}")
+    check(prep["clean"], f"12c: a spurious PointPillars detection ({prep['far']})")
+    check(prep["sizes"], f"12c: PointPillars size errors {prep['w_err']}, {prep['l_err']}")
+
+    t0 = time.perf_counter()
+    with layers.deterministic():
+        bparams, tail = pointpillars_train.fit_synthetic_bn(pcfg, steps=600, seed=0, device=DEV)
+        brep = pointpillars_train.cross_scene_report(
+            pointpillars.Detector3D(params=bparams, cfg=pcfg, device=DEV).make_prediction, pcfg)
+    torch.cuda.synchronize()
+    bn_s = time.perf_counter() - t0
+    print(f"[12c] PointPillars BN trainer (600 steps, deterministic, {bn_s:.1f} s with the predictions, last "
+          f"losses {[round(x, 4) for x in tail]}): {brep['recovered']} of {brep['total']} planted boxes on 4 "
+          f"unseen scenes (need {brep['need']})")
+    check(brep["ok"], f"12c: BN cross-scene recall {brep['recovered']}/{brep['total']}")
+    anchors = pointpillars_train.head_anchors(pcfg)
+    sp, tg = pointpillars_train.scene_tensors(scan, pgt, anchors, pcfg, DEV)
+    pp = layers.trainable(pointpillars.init_params(pcfg), DEV)
+    trainer = layers.Trainer(layers.leaves(pp), 2e-3)
+    pp_ms = step_ms(lambda: pointpillars_train.train_step(pp, trainer, sp, tg, pcfg), 20)
+    bn = pointpillars_train.init_bn_state(pcfg, DEV)
+    for t in pointpillars_train.bn_trainables(bn):
+        t.requires_grad_(True)
+    bn_tr = layers.Trainer(layers.leaves(pp) + pointpillars_train.bn_trainables(bn), 2e-3)
+    bn_ms = step_ms(lambda: pointpillars_train.train_step_bn(pp, bn, bn_tr, sp, tg, pcfg), 20)
+    print(f"[12c] PointPillars train_step {pp_ms:.3f} ms, BN train_step {bn_ms:.3f} ms (means of 20 on one scene, "
+          f"synchronized; the BN run above also generated a scene per step on the host) on {name}")
+    out["pointpillars"] = {"fit_s": pfit_s, "dists_m": prep["dists"], "w_err": prep["w_err"],
+                           "l_err": prep["l_err"], "step_ms": pp_ms}
+    out["pointpillars_bn"] = {"fit_s": bn_s, "recovered": brep["recovered"], "total": brep["total"],
+                              "step_ms": bn_ms}
+    return out
+
+
+def phase_vocabulary(tmp: str, images, name: str) -> dict:
+    """12d: apps.train_vocabulary.main over 10 of phase 7's left frames
+    written as PNG (branching 4, 3 levels): one K2 launch per image; then
+    apps.dsp_slam.main --vocabulary with that file over mini-KITTI."""
+    from PIL import Image
+
+    img_dir = os.path.join(tmp, "voc_images")
+    os.makedirs(img_dir, exist_ok=True)
+    for k, (left, _) in enumerate(images[::3][:10]):
+        Image.fromarray(left).save(os.path.join(img_dir, f"{k:06d}.png"))
+    voc_path = os.path.join(tmp, "voc12.npz")
+    fast_score.fast_score_maps.launches = 0
+    t0 = time.perf_counter()
+    voc = train_vocabulary.main(["--image_dir", img_dir, "--output", voc_path, "--stride", "1", "--branching", "4",
+                                 "--levels", "3"])
+    torch.cuda.synchronize()
+    voc_s = time.perf_counter() - t0
+    k2 = fast_score.fast_score_maps.launches
+    t0 = time.perf_counter()
+    system = dsp_slam.main(["--sequence_dir", MINI_KITTI, "--config", mini_kitti_config(tmp), "--map_dir",
+                            os.path.join(tmp, "voc_map"), "--vocabulary", voc_path])
+    slam_s = time.perf_counter() - t0
+    lost = sum(1 for _, _, l in system.tracker.trajectory if l)
+    print(f"[12d] train_vocabulary over 10 frames of 376x1241 ({voc_s:.2f} s): {voc.n_words} words, K2 launches "
+          f"{k2}; dsp_slam --vocabulary over mini-KITTI ({slam_s:.2f} s): {len(system.tracker.trajectory)} frames, "
+          f"{lost} lost, loop closer attached {system.loop_closer is not None}, {len(system.kf_db.vectors)} "
+          f"keyframes indexed on {name}")
+    check(k2 == 10 and voc.n_words == 64, f"12d: {k2} K2 launches for 10 images, {voc.n_words} words")
+    check(lost == 0 and system.loop_closer is not None and len(system.kf_db.vectors) >= 1,
+          "12d: dsp_slam with the trained vocabulary")
+    return {"k2_launches": k2, "train_s": voc_s, "slam_s": slam_s}
+
+
+def phase_overlays(tmp: str, name: str) -> dict:
+    """12e: apps.dsp_slam.main --overlay_dir over mini-KITTI on the card
+    (pipelined): one PNG per finished frame, each the shape of its frame."""
+    from PIL import Image
+
+    out = os.path.join(tmp, "overlays")
+    t0 = time.perf_counter()
+    dsp_slam.main(["--sequence_dir", MINI_KITTI, "--config", mini_kitti_config(tmp), "--map_dir",
+                   os.path.join(tmp, "overlay_map"), "--no_loop", "--pipeline", "--overlay_dir", out])
+    wall = time.perf_counter() - t0
+    pngs = sorted(os.listdir(out))
+    shapes = {np.asarray(Image.open(os.path.join(out, f))).shape for f in pngs}
+    print(f"[12e] dsp_slam --overlay_dir --pipeline over mini-KITTI ({wall:.2f} s): {pngs}, shapes {shapes} "
+          f"on {name}")
+    check(pngs == ["000000.png", "000001.png", "000002.png"] and shapes == {(160, 512, 3)},
+          f"12e: overlays {pngs} of shapes {shapes}")
+    return {"overlays": len(pngs), "wall_s": wall}
+
+
 def main():
+    # cuBLAS is deterministic (phase 12c) only with a fixed workspace
+    # configuration, read when the process makes its first handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    t_mark = [t_start]
+
+    def seconds(label: str):
+        # wall seconds of the phases since the previous mark: what to cut
+        # when the smoke nears its time limit
+        now = time.perf_counter()
+        print(f"[{label}] {now - t_mark[0]:.1f} s (smoke at {now - t_start:.1f} s)")
+        t_mark[0] = now
+
     name = card()
     print(name)
     print(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2068,9 +2493,12 @@ def main():
 
     dec = deepsdf.params_from_jax(canonical_params_np(seed=1), device=DEV)
     k1 = phase_kernel(dec, libs[0], name)
+    seconds("2-3")
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_slice(tmp)
+        seconds("4")
         ms = phase_gn(name)
+        seconds("5")
 
         system_cfg = SystemConfig.from_json(KITTI_CONFIG)
         params = tracking.tracker_from_system_config(system_cfg, device="cpu").orb_params
@@ -2080,21 +2508,27 @@ def main():
         print(f"[7] rendered {len(images)} stereo pairs at {images[0][0].shape} in "
               f"{time.perf_counter() - t0:.1f} s (before any timing)")
         k2 = phase_fast(images[0], params, libs[1], name)
+        seconds("6")
         trk = phase_tracking(system_cfg, images, poses, name)
         phase_sync_free(trk["pipelined"]["tracker"], images)
         phase_profile(system_cfg, images, trk["pipelined"]["wall_ms"])
+        seconds("7")
 
         phase_slam_accuracy(name)
+        seconds("8a")
         slam = phase_slam_k1(system_cfg, os.path.join(tmp, "deepsdf"), images, poses, name)
         phase_mapping_sync_free(slam["system"])
         phase_cli(tmp, name)
+        seconds("8b-8c")
 
         k2_mono = phase_mono_fast(name)
         mono = phase_mono_tracking(name)
         mono_prof = phase_mono_profile(name)
+        seconds("9a")
         mono_obj = phase_mono_objects(name)
         phase_mono_cli(tmp, name)
         rgbd_launches = phase_rgbd(name)
+        seconds("9b-9d")
 
         t10 = time.perf_counter()
         loop = phase_long_loop(name)
@@ -2113,6 +2547,17 @@ def main():
         online = phase_detect_online(tmp, name)
         t11 = time.perf_counter() - t11
         print(f"[11] slice 6 phases: {t11:.1f} s")
+        seconds("10-11")
+
+        t12 = time.perf_counter()
+        fit = phase_decoder_fit(tmp, name)
+        full = phase_full_arm(name)
+        loops = phase_closed_loops(name)
+        vocab = phase_vocabulary(tmp, images, name)
+        overlays = phase_overlays(tmp, name)
+        t12 = time.perf_counter() - t12
+        print(f"[12] slice 7 phases: {t12:.1f} s")
+        seconds("12")
 
     slice5 = {
         "long_loop": {k: loop["record"][k] for k in ("ate_before_loop_cm", "ate_after_loop_cm",
@@ -2126,6 +2571,10 @@ def main():
     print(json.dumps({"slice5": slice5}))
     print(json.dumps({"slice6": {"maskrcnn": mrcnn, "pointpillars": pillars, **timing,
                                  "online": online, "seconds": t11}}))
+    print(json.dumps({"slice7": {"decoder_fit": fit, "full_arm": {k: full[k] for k in ("record", "stage_ms",
+                                                                                      "profile", "wall_s")},
+                                 "closed_loops": loops, "vocabulary": vocab, "overlays": overlays,
+                                 "seconds": t12}}))
     print(name)
     kernels = [{
         "name": "decoder_fused", "route": "cuda", "source": SRC, "replaces": REPLACES,
@@ -2146,6 +2595,7 @@ def main():
         "mono_gn_ms": mono_obj["gn_ms"],
         "loop_slam_launches": loop_slam["k1_launches"],
         "detector_slam_launches": online["k1_launches"],
+        "full_arm_launches": full["k1_launches"], "full_arm_profile_k1_ms": full["profile"]["k1_ms"],
     }, {
         "name": "fast_score", "route": "cuda", "source": K2_SRC, "replaces": K2_REPLACES,
         "launches": trk["launches"], "max_abs_err": k2["max_abs_err"],
@@ -2168,6 +2618,7 @@ def main():
         "loop_launches": {"relocalization": reloc["k2_launches"], "loop_slam": loop_slam["k2_launches"],
                           "checkpoint": ckpt["k2_launches"]},
         "detector_slam_launches": online["k2_launches"],
+        "full_arm_launches": full["k2_launches"], "vocabulary_launches": vocab["k2_launches"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

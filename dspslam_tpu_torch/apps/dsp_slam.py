@@ -6,7 +6,8 @@ Port of dspslam_tpu/apps/dsp_slam.py. Usage:
         --sequence_dir <kitti_seq> --settings configs/KITTI04-12.yaml \\
         --config configs/config_kitti.json --map_dir out/map \\
         [--frames N] [--no_objects] [--pipeline] [--vocabulary voc.npz [--no_loop]] \
-        [--save_state map.npz] [--device cpu]
+        [--save_state map.npz] [--overlay_dir ov/] [--live_view_dir live/ [--live_view_port 8000]] \
+        [--device cpu]
 
 The per-frame loop mirrors dsp_slam.cc:62-105: track stereo, feed each
 keyframe its object detections (the online MaskRCNN and PointPillars on
@@ -18,10 +19,12 @@ silent run on the CPU. `--profile_dir` writes a torch.profiler trace.
 `--vocabulary` (a trained .npz, or a DBoW2 ORBvoc .bin / .txt) attaches
 relocalization after tracking loss and, unless `--no_loop`, loop closing;
 `--save_state` writes a resumable map checkpoint (slam/state_io.py).
-
-Options whose modules are not ported yet raise: `--overlay_dir` and
-`--live_view_dir` (slice 7's viz). The JAX app's map snapshot image (viz)
-is not written.
+`--overlay_dir` writes each finished frame's tracking overlay as a PNG
+(viz/frame_drawer.py; under `--pipeline` a frame finishes one call late);
+`--live_view_dir` refreshes a live view there every `--live_view_every`
+frames (viz/live_viewer.py, matplotlib), served over HTTP on 127.0.0.1 with
+`--live_view_port`. The JAX app's map snapshot image (matplotlib) is not
+written: `apps/visualize_map.py` draws one from the saved map.
 """
 
 from __future__ import annotations
@@ -37,13 +40,6 @@ from ..slam.system import SLAMSystem
 from ..slam.tracking import TrackerConfig
 from ..utils.timing import StageTimer
 from .reconstruct_frame import get_decoder, resolve_device
-
-NOT_PORTED = {
-    "overlay_dir": "--overlay_dir (viz/frame_drawer.py) comes with slice 7 and is not ported",
-    "live_view_dir": "--live_view_dir (viz/live_viewer.py) comes with slice 7 and is not ported",
-    "live_view_port": "--live_view_port (viz/live_viewer.py) comes with slice 7 and is not ported",
-}
-
 
 def build_system(system_cfg: cfg_mod.SystemConfig, sequence, enable_objects=True, pipelined=False,
                  device=None, vocabulary=None, enable_loop=True):
@@ -100,6 +96,22 @@ def build_system(system_cfg: cfg_mod.SystemConfig, sequence, enable_objects=True
     return system
 
 
+def write_overlay(out_dir: str, system, frame, recent: dict):
+    """The FrameDrawer overlay of a finished frame as <frame id>.png."""
+    if frame is None:
+        return
+    fid, img = recent.get(round(float(frame.timestamp), 6), (None, None))
+    if fid is None:
+        return
+    from PIL import Image
+
+    from ..viz import frame_drawer
+
+    os.makedirs(out_dir, exist_ok=True)
+    overlay = frame_drawer.draw_frame(img, frame.feats, frame.map_point_ids, state=system.state.name)
+    Image.fromarray(overlay).save(os.path.join(out_dir, f"{fid:06d}.png"))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--sequence_dir", required=True)
@@ -113,19 +125,20 @@ def main(argv=None):
     p.add_argument("--vocabulary", help="trained vocabulary .npz, or a DBoW2 ORBvoc .bin / .txt")
     p.add_argument("--profile_dir", help="write a torch.profiler trace here")
     p.add_argument("--save_state", help="write a resumable map checkpoint (npz) here")
-    p.add_argument("--overlay_dir", help="not ported (slice 7)")
+    p.add_argument("--overlay_dir", help="write each finished frame's tracking overlay here (PNG)")
     p.add_argument("--save_frames_dir",
                    help="per-frame map dumps (System::SaveMapCurrentFrame format)")
     p.add_argument("--save_frames_every", type=int, default=1)
     p.add_argument("--pipeline", action="store_true",
                    help="one-frame-lag pipelined tracking")
-    p.add_argument("--live_view_dir", help="not ported (slice 7)")
-    p.add_argument("--live_view_port", type=int, default=None, help="not ported (slice 7)")
+    p.add_argument("--live_view_dir", help="refresh a live map + frame view here (map.png, frame.png, index.html)")
+    p.add_argument("--live_view_port", type=int, default=None,
+                   help="also serve --live_view_dir over HTTP on 127.0.0.1 (an auto-refreshing page)")
+    p.add_argument("--live_view_every", type=int, default=5)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    for name, msg in NOT_PORTED.items():
-        if getattr(args, name) is not None:
-            raise NotImplementedError(msg)
+    if args.live_view_port is not None and not args.live_view_dir:
+        p.error("--live_view_port needs --live_view_dir")
     device = resolve_device(args.device)
 
     system_cfg = cfg_mod.SystemConfig.load(args.config) if args.config else cfg_mod.SystemConfig()
@@ -152,16 +165,40 @@ def main(argv=None):
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=acts)
         profiler.start()
+    # frames finish one call late under --pipeline: each overlay is keyed by
+    # the finished frame's timestamp (the reference's drawer also renders the
+    # last finished frame, FrameDrawer.cc:30-80)
+    recent: dict = {}
+    live = None
+    if args.live_view_dir:
+        from ..viz.live_viewer import LiveViewer
+
+        live = LiveViewer(system, args.live_view_dir, every=args.live_view_every, serve_port=args.live_view_port)
     for frame_id in range(n):
         img_l, img_r = seq.load_stereo_gray(frame_id)
+        if args.overlay_dir or live is not None:
+            recent[round(float(seq.timestamp(frame_id)), 6)] = (frame_id, img_l)
+            while len(recent) > 8:                      # frames dropped or lost
+                recent.pop(next(iter(recent)))
         with timer.stage("track"):
-            system.track_stereo(img_l, img_r, seq.timestamp(frame_id))
+            frame = system.track_stereo(img_l, img_r, seq.timestamp(frame_id))
+        if args.overlay_dir:
+            write_overlay(args.overlay_dir, system, frame, recent)
+        if live is not None:
+            fid_img = recent.get(round(float(frame.timestamp), 6)) if frame is not None else None
+            live.tick(frame_id, frame=frame, img=None if fid_img is None else fid_img[1])
         if args.save_frames_dir and frame_id % args.save_frames_every == 0:
             system.save_map_current_frame(args.save_frames_dir, frame_id)
         if frame_id % 20 == 0:
             print(f"frame {frame_id}/{n} state={system.state.name} kfs={len(system.map.keyframes)} "
                   f"pts={len(system.map.points)} objs={len(system.map.objects)}")
-    system.flush()
+    last = system.flush()
+    if args.overlay_dir:
+        write_overlay(args.overlay_dir, system, last, recent)
+    if live is not None:
+        live._last_render = 0.0          # a final refresh
+        live.tick(0)
+        live.close()
     if profiler is not None:
         profiler.stop()
         os.makedirs(args.profile_dir, exist_ok=True)

@@ -12,9 +12,15 @@ semantics (dspslam_tpu/detect/{maskrcnn,pointpillars}.py):
   (PyTorch's CUDA kernel multiplies by the reciprocal of a CPU scalar);
 - `top_k`: `lax.top_k`'s order, the lower index first among equal values
   (`torch.topk` promises no order for ties).
+
+The trainers share `leaves`, `trainable`, `Trainer` (Adam with optax's
+defaults and an optional per-step rate) and `deterministic`.
 """
 
 from __future__ import annotations
+
+import contextlib
+import os
 
 import numpy as np
 import torch
@@ -93,3 +99,54 @@ def params_from_jax(np_params, device=None):
 
 def he_normal(gen: torch.Generator, shape, fan_in: int) -> torch.Tensor:
     return torch.randn(shape, generator=gen) * np.sqrt(2.0 / fan_in)
+
+
+def leaves(tree) -> list:
+    """The tensors of a parameter tree, in tree order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def trainable(tree, device) -> dict:
+    """A float32 copy of a parameter tree on `device` whose leaves require grad."""
+    return tree_map(lambda t: t.detach().to(device, torch.float32).clone().requires_grad_(True), tree)
+
+
+class Trainer:
+    """torch.optim.Adam over trainable tensors with optax.adam's defaults
+    (betas 0.9 / 0.999, eps 1e-8 outside the square root) and an optional
+    per-step rate: step k takes schedule(k), as optax applies a schedule."""
+
+    def __init__(self, tensors: list, lr: float, schedule=None):
+        self.optimizer = torch.optim.Adam(tensors, lr=lr if schedule is None else schedule(0),
+                                          betas=(0.9, 0.999), eps=1e-8)
+        self.schedule = schedule
+        self.steps = 0
+
+    def step(self, loss: torch.Tensor):
+        """Backpropagate `loss` and take one step."""
+        self.optimizer.zero_grad(set_to_none=False)
+        loss.backward()
+        if self.schedule is not None:
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.schedule(self.steps)
+        self.optimizer.step()
+        self.steps += 1
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Run what is inside with deterministic algorithms on the card
+    (sort-based scatter-adds in place of atomic adds, deterministic cuDNN
+    convolutions), so that a seeded training run gives the same result in
+    every run. cuBLAS needs CUBLAS_WORKSPACE_CONFIG for that, read when the
+    process makes its first handle: a program that enters this sets it
+    before its first product; here it is only defaulted."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)

@@ -437,14 +437,18 @@ class Detector2D:
         self.dispatches = 0
 
     def dispatch(self, img) -> dict:
-        """Async half of make_prediction: upload the image, enqueue the
-        network and start pinned copies of its outputs, without waiting for
-        the device. Returns a handle for collect()."""
-        img = np.asarray(img)
-        if img.dtype == np.float64:
-            img = img.astype(np.float32)
-        hw = img.shape[:2]
-        out = detect(self.params, to_torch(img, self.device), hw, self.cfg)
+        """Async half of make_prediction: upload the image (a tensor on the
+        detector's device, such as the tracker's upload of a keyframe image,
+        is taken as it is), enqueue the network and start pinned copies of
+        its outputs, without waiting for the device. Returns a handle for
+        collect()."""
+        if isinstance(img, torch.Tensor):
+            img = img.to(self.device)
+        else:
+            img = np.asarray(img)
+            img = to_torch(img.astype(np.float32) if img.dtype == np.float64 else img, self.device)
+        hw = tuple(img.shape[:2])
+        out = detect(self.params, img, hw, self.cfg)
         host, event = _prefetch_to_host({"out": out})
         self.dispatches += 1
         return {"host": host, "event": event, "hw": hw}

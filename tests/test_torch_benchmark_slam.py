@@ -1,7 +1,7 @@
-"""The port's SLAM benchmark on the CPU. The stereo arm (light workload): 7
+"""The port's SLAM benchmark on the CPU. The stereo arm (`--workload legacy`): 7
 frames of the KITTI-shaped street turn (376 x 1241, 2000 features, 8
 levels, GT-derived sphere detections, the sphere decoder, pipelined
-tracking, async joint BA). The card runs it over 40 frames in
+tracking, async joint BA). The card runs it over 20 frames in
 chip_smoke.py phase 8a with the same checks: 0 lost frames, ATE < 3% of
 travel, static objects within 0.35 m of a true sphere centre, a local BA
 solve with a camera-object edge inlier; mean fps is reported first, the
@@ -29,7 +29,7 @@ def one_torch_thread():
 
 @pytest.fixture(scope="module")
 def record():
-    return benchmark_slam.main(["--device", "cpu", "--frames", "7", "--warmup", "3"])
+    return benchmark_slam.main(["--device", "cpu", "--frames", "7", "--warmup", "3", "--workload", "legacy"])
 
 
 def test_tracks_maps_and_reconstructs(record):

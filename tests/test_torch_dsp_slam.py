@@ -112,13 +112,34 @@ def test_cli_matches_jax(runs):
     assert np.linalg.norm(to[0][1][:3, 3] - np.array([2.5, 0.45, 10.0])) < 1.0
 
 
-@pytest.mark.parametrize("option", [["--overlay_dir", "o"], ["--live_view_dir", "v"],
-                                    ["--live_view_port", "8000"]])
-def test_unported_options_raise(option):
+@pytest.mark.parametrize("option", [["--overlay_dir"], ["--live_view_dir"], ["--live_view_dir", "--live_view_port"]])
+def test_unported_options_raise(option, tmp_path):
+    """The viewer options raised NotImplementedError until slice 7 ported
+    the viewers; now they run over 2 mini-KITTI frames (pipelined, so the
+    last frame finishes at flush): one overlay PNG per frame, the shape of
+    its frame; the live view's three files (served on a free port);
+    `--live_view_port` without `--live_view_dir` is a usage error."""
+    from PIL import Image
+
     from dspslam_tpu_torch.apps import dsp_slam as tdsp
 
-    with pytest.raises(NotImplementedError, match="slice"):
-        tdsp.main(["--sequence_dir", FIXTURE, "--device", "cpu"] + option)
+    out = tmp_path / "view"
+    argv = ["--sequence_dir", FIXTURE, "--map_dir", str(tmp_path / "map"), "--frames", "2", "--no_objects",
+            "--pipeline", "--device", "cpu", option[0], str(out)]
+    if "--live_view_port" in option:
+        argv += ["--live_view_port", "0", "--live_view_every", "1"]
+    tdsp.main(argv)
+    if option == ["--overlay_dir"]:
+        pngs = sorted(os.listdir(out))
+        assert pngs == ["000000.png", "000001.png"]
+        for f in pngs:
+            img = np.asarray(Image.open(out / f))
+            assert img.shape == (160, 512, 3) and (img[-6:] == [0, 255, 0]).all()
+    else:
+        assert {"map.png", "frame.png", "index.html"} <= set(os.listdir(out))
+        assert "state OK" in (out / "index.html").read_text()
+    with pytest.raises(SystemExit):
+        tdsp.main(["--sequence_dir", FIXTURE, "--device", "cpu", "--live_view_port", "8000"])
 
 
 def test_cli_defaults_to_the_card(tmp_path):

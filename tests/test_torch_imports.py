@@ -1,5 +1,6 @@
 """Import hygiene of the PyTorch port: no module of `dspslam_tpu_torch`
-(nor `chip_smoke.py`) imports JAX, the JAX package, OpenCV or torchvision,
+(nor `chip_smoke.py`) imports JAX, the JAX package, optax, orbax, OpenCV or
+torchvision,
 checked on the source's syntax tree so that a lazy import inside a function
 counts too."""
 
@@ -9,8 +10,9 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-# the card's machine has no OpenCV and no torchvision either
-FORBIDDEN = ("jax", "jaxlib", "dspslam_tpu", "cv2", "torchvision")
+# the card's machine has no OpenCV and no torchvision either; the trainers
+# use torch.optim, not optax or orbax
+FORBIDDEN = ("jax", "jaxlib", "dspslam_tpu", "cv2", "torchvision", "optax", "orbax")
 
 
 def _sources():
@@ -48,6 +50,10 @@ def test_port_has_sources():
     } <= names
     assert {
         "rotated_iou.py", "layers.py", "maskrcnn.py", "pointpillars.py", "benchmark_detectors.py",
+    } <= names
+    assert {
+        "deepsdf_train.py", "train_deepsdf.py", "maskrcnn_train.py", "pointpillars_train.py",
+        "train_vocabulary.py", "frame_drawer.py", "renderer.py", "live_viewer.py", "visualize_map.py",
     } <= names
 
 

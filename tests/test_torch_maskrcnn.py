@@ -308,6 +308,21 @@ def test_detector2d_matches_jax_on_the_cpu(params):
     assert td.dispatches == 1
 
 
+def test_detector2d_takes_a_tensor_as_it_is(params):
+    """dispatch takes an image tensor on the detector's device (the
+    tracker's own upload of a keyframe image) as it is: a uint8 gray frame
+    as a tensor and as a numpy array give equal detections."""
+    _, tp = params
+    td = tmr.Detector2D(params=tp, cfg=dataclasses.replace(TCFG, backbone_dtype="float32", score_threshold=0.0),
+                        device="cpu")
+    td.class_ids = [0, 1, 2, 3]
+    img = np.random.default_rng(2).integers(0, 256, (96, 128), dtype=np.uint8)
+    a, b = td.make_prediction(img), td.make_prediction(torch.from_numpy(img))
+    assert len(a["pred_boxes"]) >= 1 and td.dispatches == 2
+    np.testing.assert_array_equal(b["pred_boxes"], a["pred_boxes"])
+    np.testing.assert_array_equal(b["pred_masks"], a["pred_masks"])
+
+
 def test_detector_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("this checks the error raised without a card")
