@@ -3,8 +3,8 @@ from the repository's sources, checks each against its plain PyTorch
 version, drives single-frame object reconstruction, stereo tracking,
 object SLAM in stereo, mono and RGB-D, place recognition with loop
 closing, the online detectors, the decoder fit with the benchmark's full
-workload, the detector and vocabulary trainers and the overlays through
-their entry points, and times them.
+workload, the detector and vocabulary trainers, the overlays and the
+(dp, tp) mesh through their entry points, and times them.
 
     python3 chip_smoke.py
 
@@ -177,12 +177,35 @@ Phases (any failure exits non-zero, and no result line is printed):
         `apps.dsp_slam.main --vocabulary` with it over mini-KITTI;
      e. `apps.dsp_slam.main --overlay_dir --pipeline` over mini-KITTI: one
         PNG per finished frame, each the shape of its frame.
-The last lines are JSON summaries of slice 5's, slice 6's and slice 7's
-numbers, the card, a JSON summary of the kernels (K1's and K2's
+ 13. the (dp, tp) mesh (slice 8; no kernel of its own, K1 runs on every
+     rank of the sharded GN), in a one-rank NCCL group that the phase opens
+     and destroys (the card machine has one H100):
+     a. `deepsdf_train.shard_state` + `train_step` at train_deepsdf's
+        defaults (the canonical decoder, batch 16384, 8 sphere shapes) on a
+        (1, 1) mesh against the one-process step from the same state, under
+        deterministic scatter-adds: the loss of 3 steps, the first step's
+        gradients, the parameters after steps 1 and 3; ms per step of each;
+     b. `mesh_utils.sharded_object_gn` at bench_gn's inputs with 12a's fitted
+        decoder against the unsharded `batched_reconstruct`: K1 launched
+        exactly 2 x 10 times in the 10-iteration call, poses and codes within
+        1e-4 after one iteration and, after 10, as close to float64 as phase
+        5 asks; ms per object of each;
+     c. `shape.mesh.decode_sdf_grid_sharded` at 64^3 against
+        `decode_sdf_grid` (1e-6), then `apps.extract_map_objects.main
+        --shard` over a two-object map: its files equal the unsharded run's;
+     d. two gloo ranks on the card (`parallel.dryrun.spawn` of
+        `run_cases`): 13a's first step at tp = 2 against 13a's one-process
+        step (the loss; the gradients, each held to a float64 step as 12a
+        holds the card to the CPU; the parameters within what Adam's first
+        step makes of the gradient difference), and `sharded_object_gn` at
+        dp = 2 against 13b with 2 x 10 K1 launches on each rank.
+The last lines are JSON summaries of slice 5's, slice 6's, slice 7's and
+slice 8's numbers, the card, a JSON summary of the kernels (K1's and K2's
 `slam_launches` count phase 8b, their `mono_launches` phases 9b and 9a,
 `loop_slam_launches` / `loop_launches` phase 10, `detector_slam_launches`
-phase 11d, `full_arm_launches` phase 12b, K2's `vocabulary_launches` 12d)
-and {"ok": true, "device": {...}}.
+phase 11d, `full_arm_launches` phase 12b, K2's `vocabulary_launches` 12d,
+K1's `sharded_gn_launches` 13b and 13d per rank) and {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -200,6 +223,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from scipy.spatial import cKDTree
 
 if not torch.cuda.is_available():
@@ -224,8 +248,10 @@ from dspslam_tpu_torch.kernels import _nvcc, decoder_fused, fast_score  # noqa: 
 from dspslam_tpu_torch.models import deepsdf, deepsdf_train  # noqa: E402
 from dspslam_tpu_torch.objects.mono_pipeline import MonoObjectPipeline  # noqa: E402
 from dspslam_tpu_torch.place import loop_closing  # noqa: E402
+from dspslam_tpu_torch.parallel import dryrun, mesh_utils  # noqa: E402
 from dspslam_tpu_torch.place.vocabulary import Vocabulary  # noqa: E402
 from dspslam_tpu_torch.shape import gn  # noqa: E402
+from dspslam_tpu_torch.shape import mesh as mesh_mod  # noqa: E402
 from dspslam_tpu_torch.slam import frame_step, keyframe_step, state_io, tracking  # noqa: E402
 from dspslam_tpu_torch.slam import map as slam_map_mod  # noqa: E402
 from dspslam_tpu_torch.slam.system import SLAMSystem  # noqa: E402
@@ -2197,7 +2223,8 @@ def phase_decoder_fit(tmp: str, name: str) -> dict:
           f"load_torch_checkpoint: {cfg2 == cfg}, outputs max |d| {d_exp:.3e}")
     check(cfg2 == cfg and d_exp == 0.0, f"12a: exported decoder differs by {d_exp} ({cfg2})")
     return {"fit_s": fit_s, "l1": loss, "radii": radii, "step_ms": step_ms, "loss_rel_err": l_err,
-            "grad_err_card_vs_cpu": max(e_cc), "grad_err_card_vs_f64": max(e_card), "grad_err_cpu_vs_f64": max(e_cpu)}
+            "grad_err_card_vs_cpu": max(e_cc), "grad_err_card_vs_f64": max(e_card), "grad_err_cpu_vs_f64": max(e_cpu),
+            "decoder": dec}
 
 
 JAX_TPU_FULL_MARKS = {"ate_cm": 1.4, "chamfer_cm": 5.47}     # BENCH_r04, another machine: accuracy marks
@@ -2464,6 +2491,249 @@ def phase_overlays(tmp: str, name: str) -> dict:
     return {"overlays": len(pngs), "wall_s": wall}
 
 
+# phase 13: the (dp, tp) mesh (slice 8)
+SLICE8_BATCH = 16384          # train_deepsdf's default batch
+SLICE8_SHAPES = 8             # train_deepsdf --synthetic's shape count
+SLICE8_SEED = 13
+SLICE8_LOSS_TOL = 1e-6        # relative, sharded vs one-process step
+SLICE8_GRAD_TOL = 1e-5        # max |d| / max |g| per tensor
+SLICE8_PARAM_TOL = 1e-6       # absolute
+GN_ITER1_TOL = 1e-4           # poses and codes, sharded vs unsharded after one GN iteration
+
+
+def decoder_spec(dec) -> dict:
+    """A decoder as `parallel.dryrun.run_cases` takes it."""
+    return {"config": dataclasses.asdict(dec.config), "weights": [w.detach().cpu() for w in dec.weights],
+            "biases": [b.detach().cpu() for b in dec.biases]}
+
+
+def state_tensors(st) -> list:
+    return [p.detach() for p in st.decoder.parameters()] + [st.codes.detach()]
+
+
+def phase_sharded_training(name: str) -> dict:
+    """13a: the sharded train_step on a (1, 1) NCCL mesh at train_deepsdf's
+    defaults (the canonical decoder, code 64, batch 16384, 8 sphere shapes)
+    against the one-process train_step from the same state: the loss of 3
+    steps, the first step's gradients, the parameters after steps 1 and 3;
+    ms per step of each, in turns."""
+    cfg = deepsdf.DecoderConfig()
+    gen = torch.Generator(device=DEV).manual_seed(SLICE8_SEED)
+    batches = [deepsdf_train.make_sphere_dataset(gen, SLICE8_SHAPES, SLICE8_BATCH) for _ in range(3)]
+    mesh = mesh_utils.make_mesh(device=DEV)
+    check(tuple(mesh.shape) == (1, 1) and dist.get_backend() == "nccl",
+          f"13a: mesh {tuple(mesh.shape)} over {dist.get_backend()}")
+    start = deepsdf_train.init_state(cfg, SLICE8_SHAPES, seed=SLICE8_SEED, device=DEV)
+    spec = {"decoder": decoder_spec(start.decoder), "codes": start.codes.detach().cpu(), "lr": 5e-4, "clamp": 0.1,
+            "batches": [{k: v.cpu() for k, v in batches[0].items()}], "tp": None}
+    one = deepsdf_train.init_state(cfg, SLICE8_SHAPES, seed=SLICE8_SEED, device=DEV)
+    sharded = deepsdf_train.shard_state(start, mesh)
+    f64 = deepsdf_train.init_state(cfg, SLICE8_SHAPES, seed=SLICE8_SEED, device=DEV)
+    f64.decoder.double()
+    f64.codes.data = f64.codes.data.double()
+    deepsdf_train.train_step(f64, {k: v.double() if v.is_floating_point() else v for k, v in batches[0].items()})
+    grads64 = [p.grad.cpu() for p in f64.decoder.parameters()] + [f64.codes.grad.cpu()]
+    errs = {"loss": 0.0, "grad": 0.0, "param": 0.0}
+    ref = {}
+    # deterministic scatter-adds (the code table's gradient), so that the two
+    # paths differ only where the sharding makes them, not in atomics' order
+    with layers.deterministic():
+        for i, batch in enumerate(batches):
+            l_one, l_sh = float(deepsdf_train.train_step(one, batch)), float(deepsdf_train.train_step(sharded, batch))
+            errs["loss"] = max(errs["loss"], abs(l_one - l_sh) / abs(l_one))
+            if i == 0:
+                ws, bs = sharded.decoder.gather([w.grad for w in sharded.decoder.weights],
+                                                [b.grad for b in sharded.decoder.biases])
+                g_one = [p.grad for p in one.decoder.parameters()] + [one.codes.grad]
+                errs["grad"] = max(grad_errs(g_one, ws + bs + [sharded.codes.grad]))
+                ref = {"loss": l_one, "grads": [g.detach().cpu().clone() for g in g_one],
+                       "params": [t.cpu().clone() for t in state_tensors(one)], "grads64": grads64}
+            if i in (0, 2):
+                full = deepsdf_train.gather_state(sharded)
+                errs["param"] = max([errs["param"]] + [float((a - b).abs().max())
+                                                       for a, b in zip(state_tensors(one), state_tensors(full))])
+    ms = {"one": [], "sharded": []}
+    for path in ("one", "sharded", "sharded", "one"):
+        st = one if path == "one" else sharded
+        ms[path].append(step_ms(lambda: deepsdf_train.train_step(st, batches[0]), 10))
+    ms = {k: float(np.mean(v)) for k, v in ms.items()}
+    print(f"[13a] sharded train_step on a (1, 1) NCCL mesh (canonical decoder, batch {SLICE8_BATCH}, "
+          f"{SLICE8_SHAPES} shapes) vs one-process: loss rel {errs['loss']:.3e} over 3 steps, gradients "
+          f"{errs['grad']:.3e} of the largest, parameters after steps 1 and 3 max |d| {errs['param']:.3e}; "
+          f"ms per step sharded {ms['sharded']:.3f}, one-process {ms['one']:.3f} (mean of two turns of 10, "
+          f"synchronized) on {name}")
+    check(errs["loss"] <= SLICE8_LOSS_TOL and errs["grad"] <= SLICE8_GRAD_TOL and errs["param"] <= SLICE8_PARAM_TOL,
+          f"13a: sharded step differs from the one-process step: {errs}")
+    return {"errs": errs, "ms": ms, "spec": spec, "ref": ref}
+
+
+def phase_sharded_gn(decoder, name: str) -> dict:
+    """13b: sharded_object_gn on a (1, 1) NCCL mesh at bench_gn's inputs
+    (B=8, P=256, R=512, S=50, K=1024) with 12a's fitted canonical decoder
+    against the unsharded batched_reconstruct: K1 launched exactly 2 x 10
+    times in the 10-iteration call; poses and codes within 1e-4 after one
+    iteration and, after 10, as close to a float64 run as phase 5 asks;
+    ms per object of each, in turns."""
+    B, args = bench_gn_inputs()
+    mesh = mesh_utils.make_mesh(tp=1, device=DEV)
+    f64 = deepsdf_train.frozen_decoder(decoder).double()
+    f64.sdf_and_input_grad = lambda x: decoder_fused.sdf_and_input_grad_plain(list(f64.weights), list(f64.biases), x)
+    out = {"spec_args": [a.cpu() for a in args], "ref": {}}
+    for iters in (1, 10):
+        recon = gn.batched_reconstruct(decoder, gn.GNConfig(code_len=64, num_iterations=iters))
+        ref = recon(*args)
+        decoder_fused.sdf_and_input_grad.launches = 0
+        got = mesh_utils.sharded_object_gn(mesh, recon, decoder, *args)
+        launches = decoder_fused.sdf_and_input_grad.launches
+        check(launches == 2 * iters, f"13b: K1 launched {launches} times in {iters} sharded GN iterations")
+        d = max(float((got[k] - ref[k]).abs().max()) for k in ("t_cam_obj", "code"))
+        out["ref"][iters] = {k: v.cpu() for k, v in ref.items()}
+        if iters == 1:
+            check(d <= GN_ITER1_TOL, f"13b: sharded GN {d} from unsharded after 1 iteration")
+            print(f"[13b] sharded_object_gn (1, 1) vs unsharded after 1 iteration: max |d| {d:.3e}")
+            continue
+        ref64 = gn.batched_reconstruct(f64, gn.GNConfig(code_len=64, num_iterations=10))(*[a.double() for a in args])
+        d64 = {p: max(float((o[k].double() - ref64[k]).abs().max()) for k in ("t_cam_obj", "code"))
+               for p, o in (("sharded", got), ("unsharded", ref))}
+        bound = TOL_ITER10_FACTOR * d64["unsharded"] + TOL_ITER10_FLOOR
+        print(f"[13b] after 10 iterations: sharded vs unsharded max |d| {d:.3e}; vs float64: sharded "
+              f"{d64['sharded']:.3e}, unsharded {d64['unsharded']:.3e}; K1 launches {launches}; is_good "
+              f"{got['is_good'].tolist()}")
+        check(d64["sharded"] <= bound, f"13b: sharded GN {d64['sharded']} from float64 after 10 iterations, bound {bound}")
+        out["ref64"] = {k: v.cpu() for k, v in ref64.items()}
+        out["launches"], out["d10"] = launches, d
+    runs = {"unsharded": [], "sharded": []}
+    for path in ("unsharded", "sharded", "sharded", "unsharded"):
+        if path == "sharded":
+            runs[path].append(cuda_ms(lambda: mesh_utils.sharded_object_gn(mesh, recon, decoder, *args), 3) / B)
+        else:
+            runs[path].append(cuda_ms(lambda: recon(*args), 3) / B)
+    out["ms"] = {k: float(np.mean(v)) for k, v in runs.items()}
+    print(f"[13b] GN ms per object at bench_gn shapes (10 iterations, fitted decoder): sharded "
+          f"{out['ms']['sharded']:.3f}, unsharded {out['ms']['unsharded']:.3f} on {name}")
+    return out
+
+
+def phase_sharded_extract(tmp: str, decoder, name: str) -> dict:
+    """13c: decode_sdf_grid_sharded at 64^3 against decode_sdf_grid; then
+    extract_map_objects --shard over a two-object map with 12a's fitted
+    decoder, exported: the .ply and pose files equal the unsharded run's."""
+    mesh = mesh_utils.make_mesh(tp=1, device=DEV)
+    code = torch.from_numpy(np.random.default_rng(13).normal(0, 0.02, 64).astype(np.float32)).to(DEV)
+    with torch.no_grad():
+        d = float((mesh_mod.decode_sdf_grid_sharded(decoder, code, 64, mesh)
+                   - mesh_mod.decode_sdf_grid(decoder, code, 64)).abs().max())
+    print(f"[13c] decode_sdf_grid_sharded (1, 1) vs decode_sdf_grid at 64^3: max |d| {d:.3e}")
+    check(d <= 1e-6, f"13c: sharded voxel decode differs by {d}")
+    map_dir = os.path.join(tmp, "slice8_map")
+    os.makedirs(map_dir)
+    with open(os.path.join(map_dir, "MapObjects.txt"), "w") as f:
+        for obj_id, scale in ((1, 0.0), (2, 0.02)):
+            Two = np.eye(4)[:3]
+            Two[:, 3] = (obj_id, 0.0, 10.0)
+            c = scale * np.random.default_rng(obj_id).normal(size=64)
+            f.write(f"{obj_id}\n{' '.join(map(str, Two.ravel()))}\n{' '.join(map(str, c))}\n")
+    exp = os.path.join(tmp, "slice8_decoder")
+    deepsdf_train.export_reference_format(deepsdf_train.state_from(decoder, torch.zeros(1, 64)), exp)
+    cfg_path = os.path.join(tmp, "slice8_config.json")
+    SystemConfig(deepsdf_dir=exp).to_json(cfg_path)
+    outs = {}
+    for mode in ("shard", "plain"):
+        out_dir = os.path.join(tmp, f"slice8_meshes_{mode}")
+        argv = ["--map_dir", map_dir, "--config", cfg_path, "--output_dir", out_dir, "--device", DEV.type]
+        extract_map_objects.main(argv + (["--shard"] if mode == "shard" else []))
+        outs[mode] = out_dir
+    verts = []
+    for obj_id in (1, 2):
+        for suffix in (".ply", "_pose.npy"):
+            a, b = (open(os.path.join(outs[m], f"{obj_id}{suffix}"), "rb").read() for m in ("shard", "plain"))
+            check(a == b, f"13c: extract_map_objects --shard wrote another {obj_id}{suffix}")
+        verts.append(len(read_mesh_ply(os.path.join(outs["shard"], f"{obj_id}.ply"))[0]))
+    print(f"[13c] extract_map_objects --shard: {verts} vertices, .ply and pose files equal the unsharded run's")
+    check(min(verts) > 100, f"13c: meshes of {verts} vertices")
+    return {"decode_err": d, "vertices": verts}
+
+
+def adam_first_step_gap(g_a: list, g_b: list, lr: float) -> list:
+    """|p_a - p_b| that Adam's first step (p -= lr g / (|g| + eps)) makes of
+    two gradients of one start, per entry."""
+    def phi(g):
+        g = g.double()
+        return g / (g.abs() + 1e-8)
+
+    return [lr * (phi(a) - phi(b)).abs() for a, b in zip(g_a, g_b)]
+
+
+def phase_two_ranks(tmp: str, train: dict, sharded_gn: dict, decoder, name: str) -> dict:
+    """13d: two gloo ranks on the one card (NCCL refuses two ranks on one
+    device; gloo carries the CUDA tensors of broadcast, all_reduce and
+    all_gather through the host): 13a's first step at tp = 2 against 13a's
+    one-process step, and sharded_object_gn at dp = 2 against 13b, with 2
+    K1 launches per GN iteration on each rank. Correctness only: no time
+    is read from gloo."""
+    out_dir = os.path.join(tmp, "slice8_ranks")
+    os.makedirs(out_dir)
+    spec = {"train": train["spec"]}
+    for iters in (1, 10):
+        spec[f"gn:{iters}"] = {"decoder": decoder_spec(decoder), "tp": 1, "args": sharded_gn["spec_args"],
+                               "gn_config": {"code_len": 64, "num_iterations": iters}}
+    torch.save(spec, os.path.join(out_dir, "spec.pt"))
+    t0 = time.perf_counter()
+    dryrun.spawn(dryrun.run_cases, 2, os.path.join(out_dir, "spec.pt"), out_dir, DEV.type, device=DEV,
+                 backend="gloo")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=True) for r in range(2)]
+    res = {"wall_s": wall, "k1_launches": [r["gn:10"]["k1_launches"] for r in ranks]}
+    for r, got in enumerate(ranks):
+        t = got["train"]
+        loss = abs(t["losses"][0] - train["ref"]["loss"]) / abs(train["ref"]["loss"])
+        grad = max(grad_errs(train["ref"]["grads"], t["grads"]))
+        # as in 12a: the L1 gradient is a sign per row, so another summation
+        # order moves the 16384-row sums; each run is held to float64
+        e_tp, e_one = (max(grad_errs(train["ref"]["grads64"], g)) for g in (t["grads"], train["ref"]["grads"]))
+        gap = adam_first_step_gap(t["grads"], train["ref"]["grads"], train["spec"]["lr"])
+        excess = max(float(((a - b).abs().double() - g).max())
+                     for a, b, g in zip(t["params"], train["ref"]["params"], gap))
+        d1 = max(float((got["gn:1"][k] - sharded_gn["ref"][1][k]).abs().max()) for k in ("t_cam_obj", "code"))
+        d10 = max(float((got["gn:10"][k] - sharded_gn["ref"][10][k]).abs().max()) for k in ("t_cam_obj", "code"))
+        d64 = max(float((got["gn:10"][k].double() - sharded_gn["ref64"][k]).abs().max()) for k in ("t_cam_obj", "code"))
+        u64 = max(float((sharded_gn["ref"][10][k].double() - sharded_gn["ref64"][k]).abs().max())
+                  for k in ("t_cam_obj", "code"))
+        print(f"[13d] rank {r} of 2 (gloo on the card): train mesh {t['mesh']}: loss rel {loss:.3e}, gradients "
+              f"{grad:.3e} of the largest (from float64: tp = 2 {e_tp:.3e}, 13a's one-process {e_one:.3e}), "
+              f"parameters beyond Adam's first-step map of the gradient difference "
+              f"{excess:.3e}; GN mesh dp = 2: after 1 iteration max |d| {d1:.3e} from 13b, after 10 {d10:.3e} "
+              f"(vs float64 {d64:.3e}, 13b's unsharded {u64:.3e}); K1 launches {got['gn:1']['k1_launches']} + "
+              f"{got['gn:10']['k1_launches']}")
+        check(t["mesh"] == (1, 2) and loss <= SLICE8_LOSS_TOL and excess <= SLICE8_PARAM_TOL
+              and e_tp <= max(FIT_GRAD_FACTOR * e_one, FIT_GRAD_FLOOR),
+              f"13d: rank {r}'s tp = 2 step differs from 13a's: loss {loss}, gradients from float64 {e_tp} "
+              f"(one-process {e_one}), parameters {excess}")
+        check(got["gn:1"]["k1_launches"] == 2 and got["gn:10"]["k1_launches"] == 20,
+              f"13d: rank {r} launched K1 {got['gn:1']['k1_launches']} + {got['gn:10']['k1_launches']} times")
+        check(d1 <= GN_ITER1_TOL and d64 <= TOL_ITER10_FACTOR * u64 + TOL_ITER10_FLOOR,
+              f"13d: rank {r}'s dp = 2 GN differs from 13b: {d1} after 1 iteration, {d64} from float64 after 10")
+        res[f"rank{r}"] = {"loss_rel": loss, "grad_err": grad, "grad_err_f64": e_tp, "one_process_grad_err_f64": e_one,
+                           "param_excess": excess, "gn_d1": d1, "gn_d10": d10}
+    print(f"[13d] two gloo ranks on the card: {wall:.1f} s (spawn and CUDA start included)")
+    return res
+
+
+def phase_mesh(tmp: str, decoder, name: str) -> dict:
+    """13a-13c in a one-rank NCCL group that this phase opens and destroys,
+    then 13d in two spawned gloo ranks."""
+    with mesh_utils.process_group(DEV):
+        train = phase_sharded_training(name)
+        sharded_gn = phase_sharded_gn(decoder, name)
+        extract = phase_sharded_extract(tmp, decoder, name)
+    check(not dist.is_initialized(), "13: the one-rank group was not destroyed")
+    two = phase_two_ranks(tmp, train, sharded_gn, decoder, name)
+    return {"training": {"errs": train["errs"], "ms_per_step": train["ms"]},
+            "gn": {"ms_per_object": sharded_gn["ms"], "k1_launches": sharded_gn["launches"],
+                   "d10": sharded_gn["d10"]},
+            "extract": extract, "two_ranks": two}
+
+
 def main():
     # cuBLAS is deterministic (phase 12c) only with a fixed workspace
     # configuration, read when the process makes its first handle
@@ -2559,6 +2829,12 @@ def main():
         print(f"[12] slice 7 phases: {t12:.1f} s")
         seconds("12")
 
+        t13 = time.perf_counter()
+        slice8 = phase_mesh(tmp, fit.pop("decoder"), name)
+        slice8["seconds"] = time.perf_counter() - t13
+        print(f"[13] slice 8 phases: {slice8['seconds']:.1f} s")
+        seconds("13")
+
     slice5 = {
         "long_loop": {k: loop["record"][k] for k in ("ate_before_loop_cm", "ate_after_loop_cm",
                                                       "loops_closed", "loop_kfs", "loop_wall_s")},
@@ -2575,6 +2851,7 @@ def main():
                                                                                       "profile", "wall_s")},
                                  "closed_loops": loops, "vocabulary": vocab, "overlays": overlays,
                                  "seconds": t12}}))
+    print(json.dumps({"slice8": slice8}))
     print(name)
     kernels = [{
         "name": "decoder_fused", "route": "cuda", "source": SRC, "replaces": REPLACES,
@@ -2596,6 +2873,7 @@ def main():
         "loop_slam_launches": loop_slam["k1_launches"],
         "detector_slam_launches": online["k1_launches"],
         "full_arm_launches": full["k1_launches"], "full_arm_profile_k1_ms": full["profile"]["k1_ms"],
+        "sharded_gn_launches": {"13b": slice8["gn"]["k1_launches"], "13d": slice8["two_ranks"]["k1_launches"]},
     }, {
         "name": "fast_score", "route": "cuda", "source": K2_SRC, "replaces": K2_REPLACES,
         "launches": trk["launches"], "max_abs_err": k2["max_abs_err"],

@@ -11,8 +11,13 @@ the reference tool's outputs (extract_map_objects.py:33-63).
         [--voxels_dim 128] [--device cpu]
 
 `--device` defaults to cuda; asking for cuda without a card is an error.
-The JAX tool's `--shard` (the voxel decode split over a TPU mesh) is not
-ported.
+`--shard` splits each object's voxel decode over the dp ranks of a
+`make_mesh(tp=1)` mesh (every process of a torchrun world, or one rank
+without torchrun; NCCL on the card, gloo with `--device cpu`); rank 0 runs
+marching tetrahedra and writes the files.
+
+    torchrun --nproc_per_node 2 -m dspslam_tpu_torch.apps.extract_map_objects \\
+        --map_dir out/map --config configs/config_kitti.json --shard
 """
 
 from __future__ import annotations
@@ -21,8 +26,10 @@ import argparse
 import os
 
 import numpy as np
+import torch.distributed as dist
 
 from .. import config as cfg_mod
+from ..parallel import mesh_utils
 from ..shape import mesh as mesh_mod
 from ..utils import io as io_mod
 from .reconstruct_frame import get_decoder, resolve_device
@@ -48,20 +55,35 @@ def main(argv=None):
     p.add_argument("--voxels_dim", type=int, default=64)
     p.add_argument("--output_dir", default=None)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--shard", action="store_true",
+                   help="split the voxel-grid decode over the torchrun world's dp ranks")
     args = p.parse_args(argv)
-    device = resolve_device(args.device)
+    if args.shard:
+        with mesh_utils.process_group(args.device) as device:
+            return extract(args, device, mesh_utils.make_mesh(tp=1, device=device))
+    return extract(args, resolve_device(args.device), None)
 
+
+def extract(args, device, mesh):
+    """Decode every object of the map on `device`, split over `mesh`'s dp
+    ranks when one is given; rank 0 writes the meshes and poses. Returns
+    (objects, meshes written by this rank)."""
+    lead = mesh is None or dist.get_rank() == 0
     system_cfg = cfg_mod.SystemConfig.load(args.config) if args.config else cfg_mod.SystemConfig()
     decoder = get_decoder(system_cfg, device)
     out_dir = args.output_dir or os.path.join(args.map_dir, "meshes")
-    os.makedirs(out_dir, exist_ok=True)
+    if lead:
+        os.makedirs(out_dir, exist_ok=True)
 
     objs = load_map_objects(os.path.join(args.map_dir, "MapObjects.txt"))
     extractor = mesh_mod.MeshExtractor(decoder, code_len=system_cfg.optimizer.code_len,
-                                       voxels_dim=args.voxels_dim, device=device)
+                                       voxels_dim=args.voxels_dim, device=device, mesh=mesh)
     meshes = {}
     for obj_id, Two, code in objs:
-        m = extractor.extract_mesh_from_code(code)
+        handle = extractor.dispatch(code)
+        if not lead:
+            continue
+        m = extractor.collect(handle)
         io_mod.write_mesh_ply(m["vertices"], m["faces"], os.path.join(out_dir, f"{obj_id}.ply"))
         np.save(os.path.join(out_dir, f"{obj_id}_pose.npy"), Two)
         meshes[obj_id] = m

@@ -12,9 +12,16 @@ holding a trainable `DeepSDFDecoder`, an `nn.Parameter` code table and a
 outside the square root). Everything runs in float32 with TF32 off on the
 card (ROADMAP's precision rule); nothing here reaches kernel K1, whose
 wrapper computes values and input gradients for the GN, not weight
-gradients. The JAX package's `(dp, tp)` mesh sharding and `fit_spheres`'
-`lax.scan` chunks (a relay workaround) are not ported: the loop is eager
-on one device.
+gradients. `fit_spheres`' `lax.scan` chunks (a relay workaround) are not
+ported: the loop is eager.
+
+Training on the JAX package's `(dp, tp)` mesh (parallel/mesh_utils.py):
+`shard_state` puts a state on a `make_mesh()` mesh, with the decoder
+tensor-parallel on `tp` (parallel/tp_decoder.py) and the code table
+replicated; `train_step` on it takes this dp rank's rows of the global
+batch and averages the gradients and the loss over `dp` with one
+all-reduce; `gather_state` puts the full state back together for
+`save_checkpoint` and `export_reference_format`.
 """
 
 from __future__ import annotations
@@ -25,18 +32,21 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from ..parallel import mesh_utils, tp_decoder
 from ..slam.map import entry_device
 from . import deepsdf
 
 
 @dataclasses.dataclass
 class TrainState:
-    decoder: deepsdf.DeepSDFDecoder      # weights require grad
+    decoder: deepsdf.DeepSDFDecoder | tp_decoder.TensorParallelDecoder    # weights require grad
     codes: nn.Parameter                  # (num_shapes, code_len) latent table
     optimizer: torch.optim.Optimizer
     step: int = 0
+    mesh: object = None                  # the (dp, tp) DeviceMesh of a sharded state
 
 
 def make_optimizer(params, lr: float = 5e-4) -> torch.optim.Adam:
@@ -75,6 +85,64 @@ def state_from_jax(params_np: dict, codes_np, config: deepsdf.DecoderConfig, dev
                       torch.from_numpy(np.array(codes_np, np.float32)), lr, step)
 
 
+def _move_adam(old: torch.optim.Optimizer, new: torch.optim.Optimizer, convert):
+    """Adam's moments from `old`'s parameters onto `new`'s. `convert` maps a
+    list of tensors laid out as old's parameters to new's layout."""
+    if not old.state:
+        return
+    old_params, new_params = old.param_groups[0]["params"], new.param_groups[0]["params"]
+    for key in ("exp_avg", "exp_avg_sq"):
+        for p, t in zip(new_params, convert([old.state[q][key] for q in old_params])):
+            new.state[p][key] = t
+    for p in new_params:
+        new.state[p]["step"] = old.state[old_params[0]]["step"].clone()
+
+
+def _decoder_layout(tp_dec: tp_decoder.TensorParallelDecoder, fn):
+    """A `convert` for `_move_adam`: `fn` (tp_dec.shard or tp_dec.gather)
+    over the decoder's weights and biases, the code table unchanged."""
+    n = len(tp_dec.weights)
+
+    def convert(ts):
+        ws, bs = fn(ts[:n], ts[n:2 * n])
+        return [*ws, *bs, ts[2 * n]]
+
+    return convert
+
+
+def shard_state(state: TrainState, mesh) -> TrainState:
+    """`state` on a (dp, tp) mesh: the decoder tensor-parallel on tp, the
+    code table replicated, both from the mesh's first rank. Adam's moments
+    are elementwise, so they are cut with the weights."""
+    mesh_utils.replicate_(list(state.decoder.parameters()) + [state.codes], mesh)
+    decoder = mesh_utils.decoder_param_sharding(mesh, state.decoder)
+    codes = nn.Parameter(state.codes.detach().clone())
+    optimizer = make_optimizer(list(decoder.parameters()) + [codes], state.optimizer.param_groups[0]["lr"])
+    _move_adam(state.optimizer, optimizer, _decoder_layout(decoder, decoder.shard))
+    return TrainState(decoder, codes, optimizer, state.step, mesh)
+
+
+def gather_state(state: TrainState) -> TrainState:
+    """The unsharded state of a sharded one, on every rank (a collective:
+    every rank calls it; rank 0 writes what it returns)."""
+    decoder = tp_decoder.gather_decoder(state.decoder)
+    out = state_from(decoder, state.codes, state.optimizer.param_groups[0]["lr"], state.step)
+    _move_adam(state.optimizer, out.optimizer, _decoder_layout(state.decoder, state.decoder.gather))
+    return out
+
+
+def _average_over_dp(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
+    """Gradients and the loss averaged over the mesh's dp ranks in one
+    all-reduce; returns the global loss."""
+    params = list(state.decoder.parameters()) + [state.codes]
+    flat = torch.cat([p.grad.reshape(-1) for p in params] + [loss.detach().reshape(1)])
+    dist.all_reduce(flat, group=state.mesh.get_group("dp"))
+    flat /= state.mesh.size(0)
+    for p, g in zip(params, flat[:-1].split([p.numel() for p in params])):
+        p.grad.copy_(g.view_as(p))
+    return flat[-1]
+
+
 def frozen_decoder(decoder: deepsdf.DeepSDFDecoder) -> deepsdf.DeepSDFDecoder:
     """A copy with weights that do not require grad: what the GN stack
     (and kernel K1 on the card) takes."""
@@ -97,10 +165,16 @@ def train_step(state: TrainState, batch: dict, clamp: float = 0.1) -> torch.Tens
     the step as a device scalar (no host sync). `clamp` is the reference's
     ClampingDistance (0.1); cold starts need a wider band: a fresh network
     that predicts outside +-clamp everywhere gets no gradient from clamped
-    targets."""
+    targets. On a sharded state every rank passes the same global batch:
+    each dp rank takes its B / dp rows, and the loss returned is the mean
+    over all B (every shard has the same size)."""
+    if state.mesh is not None:
+        batch = mesh_utils.batch_sharding(state.mesh)(batch)
     state.optimizer.zero_grad(set_to_none=False)
     loss = sdf_loss(state.decoder, state.codes, batch["shape_idx"], batch["xyz"], batch["sdf"], clamp=clamp)
     loss.backward()
+    if state.mesh is not None:
+        loss = _average_over_dp(state, loss)
     state.optimizer.step()
     state.step += 1
     return loss.detach()

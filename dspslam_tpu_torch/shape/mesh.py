@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.mesh_utils import gather_rows, mesh_device
+
 # ---------------------------------------------------------------------------
 # Voxel grid decode
 
@@ -31,12 +33,30 @@ def decode_sdf_grid(decoder, code: torch.Tensor, vol_dim: int,
     """SDF on a vol_dim^3 grid -> (vol_dim, vol_dim, vol_dim), decoded in
     chunks of at most `chunk` points on the code's device."""
     pts = torch.from_numpy(create_voxel_grid(vol_dim)).to(code.device)
+    return _decode_points(decoder, code, pts, chunk).reshape(vol_dim, vol_dim, vol_dim)
+
+
+def _decode_points(decoder, code: torch.Tensor, pts: torch.Tensor, chunk: int) -> torch.Tensor:
     L = code.shape[0]
     out = []
     for start in range(0, pts.shape[0], chunk):
         p = pts[start:start + chunk]
         out.append(decoder(torch.cat([code.expand(p.shape[0], L), p], dim=-1)))
-    return torch.cat(out).reshape(vol_dim, vol_dim, vol_dim)
+    return torch.cat(out)
+
+
+def decode_sdf_grid_sharded(decoder, code: torch.Tensor, vol_dim: int, mesh,
+                            chunk: int = 64**3) -> torch.Tensor:
+    """`decode_sdf_grid` with the vol_dim^3 points split over the mesh's dp
+    ranks: the points are padded to a multiple of dp, each rank decodes its
+    slab in chunks of at most `chunk`, and the slabs are all-gathered and
+    trimmed. Every rank returns the whole grid."""
+    pts = torch.from_numpy(create_voxel_grid(vol_dim)).to(mesh_device(mesh))
+    n, dp, r = pts.shape[0], mesh.size(0), mesh.get_local_rank("dp")
+    slab = -(-n // dp)
+    pts = torch.nn.functional.pad(pts, (0, 0, 0, slab * dp - n))[r * slab:(r + 1) * slab]
+    sdf = gather_rows(_decode_points(decoder, code.to(pts.device), pts, chunk), mesh.get_group("dp"))
+    return sdf[:n].reshape(vol_dim, vol_dim, vol_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -172,18 +192,24 @@ class MeshExtractor:
     """Code -> mesh, mirroring the reference MeshExtractor API."""
 
     def __init__(self, decoder, code_len: int = 64, voxels_dim: int = 64,
-                 device=None):
+                 device=None, mesh=None):
+        """`mesh`: a (dp, tp) DeviceMesh; the voxel decode is then split
+        over its dp ranks (`decode_sdf_grid_sharded`)."""
         self.decoder = decoder
         self.code_len = code_len
         self.voxels_dim = voxels_dim
         self.device = device
+        self.mesh = mesh
 
     def dispatch(self, code):
         """Async half: queue the voxel-grid SDF decode and its copy into
         pinned host memory; marching tetrahedra (host) runs at collect().
         Returns a handle (host grid, CUDA event or None on the CPU)."""
-        code = torch.as_tensor(code, dtype=torch.float32, device=self.device)
-        sdf = decode_sdf_grid(self.decoder, code[: self.code_len], self.voxels_dim)
+        code = torch.as_tensor(code, dtype=torch.float32, device=self.device)[: self.code_len]
+        if self.mesh is not None:
+            sdf = decode_sdf_grid_sharded(self.decoder, code, self.voxels_dim, self.mesh)
+        else:
+            sdf = decode_sdf_grid(self.decoder, code, self.voxels_dim)
         if not sdf.is_cuda:
             return sdf, None
         host = torch.empty(sdf.shape, dtype=sdf.dtype, pin_memory=True).copy_(sdf, non_blocking=True)
