@@ -3,8 +3,9 @@ from the repository's sources, checks each against its plain PyTorch
 version, drives single-frame object reconstruction, stereo tracking,
 object SLAM in stereo, mono and RGB-D, place recognition with loop
 closing, the online detectors, the decoder fit with the benchmark's full
-workload, the detector and vocabulary trainers, the overlays and the
-(dp, tp) mesh through their entry points, and times them.
+workload, the detector and vocabulary trainers, the overlays, the
+(dp, tp) mesh and the decoder's configuration contract through their
+entry points, and times them.
 
     python3 chip_smoke.py
 
@@ -150,9 +151,10 @@ Phases (any failure exits non-zero, and no result line is printed):
         shapes (the canonical decoder, 5 shapes, batch 8192, 600 steps): each
         code's surface along +x within 0.05 m of its radius; one `train_step`
         on the card and on the CPU from the same seeded state and numpy
-        batch (loss within 1e-5 relative; each device's gradients against a
-        float64 step's, the card's largest error over the tensors within
-        twice the CPU's or 1e-4 of a tensor's largest entry); the exported
+        batch with float32 products (matmul_precision "highest"; loss
+        within 1e-5 relative; each device's gradients against a float64
+        step's, the card's largest error over the tensors within twice the
+        CPU's or 1e-4 of a tensor's largest entry); the exported
         experiment dir through `load_torch_checkpoint` gives equal outputs;
         the steady ms per step;
      b. `apps.benchmark_slam.main(["--frames", "56"])`, the full workload
@@ -181,7 +183,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      rank of the sharded GN), in a one-rank NCCL group that the phase opens
      and destroys (the card machine has one H100):
      a. `deepsdf_train.shard_state` + `train_step` at train_deepsdf's
-        defaults (the canonical decoder, batch 16384, 8 sphere shapes) on a
+        defaults (the canonical decoder with float32 products, batch 16384,
+        8 sphere shapes) on a
         (1, 1) mesh against the one-process step from the same state, under
         deterministic scatter-adds: the loss of 3 steps, the first step's
         gradients, the parameters after steps 1 and 3; ms per step of each;
@@ -199,13 +202,35 @@ Phases (any failure exits non-zero, and no result line is printed):
         holds the card to the CPU; the parameters within what Adam's first
         step makes of the gradient difference), and `sharded_object_gn` at
         dp = 2 against 13b with 2 x 10 K1 launches on each rank.
-The last lines are JSON summaries of slice 5's, slice 6's, slice 7's and
-slice 8's numbers, the card, a JSON summary of the kernels (K1's and K2's
+ 14. the decoder's configuration contract (slice 9): `compute_dtype`,
+     `matmul_precision` and `GNConfig.render_eval_fraction`:
+     a. the GN at bench_gn's inputs on the canonical decoder (K1), with
+        phase 5's random weights and with 12a's fitted ones, at
+        matmul_precision "highest" (f32 products) and "default" (TF32):
+        after one iteration (k4 = 1e7) the two within 1e-3; after 10 with
+        k4 = 0 "default" as close to a float64 run as phase 5 holds K1. If
+        any fails, the shipped default must be "highest". ms per object
+        at each precision in turns, K1 launched 2 x 10 times (its counter
+        and the profiler), the render grid's forward per GN call and the
+        generic input-gradient path at N = 2048 and 8192 at each precision;
+     b. a 4 x 256 decoder (latent_in (2,), train_deepsdf --layers 4
+        --hidden 256) with seeded weights: its generic path, sync-free, at
+        "highest" within K1's tolerances of a float64 run; its GN finite
+        after 10 iterations with 0 K1 launches;
+     c. the canonical decoder at compute_dtype bfloat16: forward and generic
+        sdf within 5e-2 of float32's, its GN finite with 0 K1 launches;
+     d. `render_eval_fraction`: a cap at the most valid samples an object
+        has gives the uncapped GN exactly after one iteration; 0.5 decodes B x
+        int(R S / 2) rows per iteration and ends finite after 10 with 20 K1
+        launches; ms per object of each.
+The last lines are JSON summaries of slice 5's to slice 9's numbers, the
+card, a JSON summary of the kernels (K1's and K2's
 `slam_launches` count phase 8b, their `mono_launches` phases 9b and 9a,
 `loop_slam_launches` / `loop_launches` phase 10, `detector_slam_launches`
 phase 11d, `full_arm_launches` phase 12b, K2's `vocabulary_launches` 12d,
-K1's `sharded_gn_launches` 13b and 13d per rank) and {"ok": true,
-"device": {...}}.
+K1's `sharded_gn_launches` 13b and 13d per rank, its
+`decoder_contract_launches` 14a-14c, the GN's ms per object by precision
+and the generic path's times) and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -250,7 +275,8 @@ from dspslam_tpu_torch.objects.mono_pipeline import MonoObjectPipeline  # noqa: 
 from dspslam_tpu_torch.place import loop_closing  # noqa: E402
 from dspslam_tpu_torch.parallel import dryrun, mesh_utils  # noqa: E402
 from dspslam_tpu_torch.place.vocabulary import Vocabulary  # noqa: E402
-from dspslam_tpu_torch.shape import gn  # noqa: E402
+from dspslam_tpu_torch.ops import lie  # noqa: E402
+from dspslam_tpu_torch.shape import gn, losses  # noqa: E402
 from dspslam_tpu_torch.shape import mesh as mesh_mod  # noqa: E402
 from dspslam_tpu_torch.slam import frame_step, keyframe_step, state_io, tracking  # noqa: E402
 from dspslam_tpu_torch.slam import map as slam_map_mod  # noqa: E402
@@ -317,10 +343,11 @@ def card() -> str:
     return out[torch.cuda.current_device()] if out else "unknown"
 
 
-def canonical_params_np(seed: int) -> dict:
-    """He-normal (in, out) weights and zero biases, as the JAX pytree."""
+def canonical_params_np(seed: int, config: deepsdf.DecoderConfig | None = None) -> dict:
+    """He-normal (in, out) weights and zero biases, as the JAX pytree, of
+    the canonical decoder or of `config`'s layout."""
     rng = np.random.default_rng(seed)
-    dims = deepsdf.DecoderConfig().layer_dims()
+    dims = (config or deepsdf.DecoderConfig()).layer_dims()
     return {
         "w": [(rng.normal(size=(i, o)) * np.sqrt(2.0 / i)).astype(np.float32) for i, o in dims],
         "b": [np.zeros((o,), np.float32) for _, o in dims],
@@ -621,10 +648,11 @@ def phase_gn(name: str) -> dict:
     f64_dec.sdf_and_input_grad = lambda x: decoder_fused.sdf_and_input_grad_plain(
         list(f64_dec.weights), list(f64_dec.biases), x
     )
+    refs = {}
     for iters in (1, 10):
         cfg = gn.GNConfig(code_len=64, num_iterations=iters)
         out = {p: gn.batched_reconstruct(decs[p], cfg)(*args) for p in decs}
-        ref = gn.batched_reconstruct(f64_dec, cfg)(*[a.double() for a in args])
+        ref = refs[iters] = gn.batched_reconstruct(f64_dec, cfg)(*[a.double() for a in args])
         for p in out:
             check(bool(torch.isfinite(out[p]["t_cam_obj"]).all() and torch.isfinite(out[p]["code"]).all()),
                   f"non-finite GN output on the {p} path after {iters} iterations")
@@ -640,7 +668,7 @@ def phase_gn(name: str) -> dict:
             bound = TOL_ITER10_FACTOR * d64["plain"] + TOL_ITER10_FLOOR
             check(d64["kernel"] <= bound,
                   f"kernel path {d64['kernel']} from float64 after 10 iterations, bound {bound}")
-    return ms
+    return {"ms": ms, "f64_decoder": f64_dec, "ref64_iter1": refs[1]}
 
 
 def k2_levels(left: np.ndarray, right: np.ndarray, params) -> list:
@@ -2155,8 +2183,10 @@ def phase_decoder_fit(tmp: str, name: str) -> dict:
     """12a: deepsdf_train.fit_spheres at train_bench_decoder's shapes (the
     canonical decoder, 5 shapes, batch 8192, 600 steps, seed 0); each code's
     surface along +x; one train_step card vs CPU from the same seeded state
-    and numpy batch (loss and every gradient); the exported experiment dir
-    through load_torch_checkpoint (equal outputs)."""
+    and numpy batch (loss and every gradient), with float32 products
+    (matmul_precision "highest"); the steady step at the shipped precision;
+    the exported experiment dir through load_torch_checkpoint (equal
+    outputs)."""
     cfg = benchmark_slam.BENCH_DECODER
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2183,8 +2213,12 @@ def phase_decoder_fit(tmp: str, name: str) -> dict:
     batch_np = {"shape_idx": idx, "xyz": xyz,
                 "sdf": (np.linalg.norm(xyz, axis=-1) - (0.3 + 0.1 * idx)).astype(np.float32)}
     out = []
+    # float32 products on the card too: each device is held to float64 at
+    # float32's tolerance (the fit above and the steady step below run the
+    # shipped precision)
+    cfg_f32 = dataclasses.replace(cfg, matmul_precision="highest")
     for dev, dtype in ((DEV, torch.float32), (torch.device("cpu"), torch.float32), (torch.device("cpu"), torch.float64)):
-        st = deepsdf_train.init_state(cfg, 5, seed=0, device=dev)
+        st = deepsdf_train.init_state(cfg_f32, 5, seed=0, device=dev)
         st.decoder.to(dtype)
         st.codes.data = st.codes.data.to(dtype)
         batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
@@ -2206,6 +2240,9 @@ def phase_decoder_fit(tmp: str, name: str) -> dict:
     check(l_err <= FIT_LOSS_TOL, f"12a: train_step loss card vs CPU rel {l_err}")
     check(max(e_card) <= max(FIT_GRAD_FACTOR * max(e_cpu), FIT_GRAD_FLOOR),
           f"12a: train_step gradients: card {e_card} vs CPU {e_cpu} from float64")
+    # the steady step at the shipped precision, after one step's setup
+    st_g = deepsdf_train.init_state(cfg, 5, seed=0, device=DEV)
+    deepsdf_train.train_step(st_g, {k: torch.from_numpy(v).to(DEV) for k, v in batch_np.items()})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(20):
@@ -2219,7 +2256,8 @@ def phase_decoder_fit(tmp: str, name: str) -> dict:
     x = torch.from_numpy(rng.normal(0, 0.4, (4096, cfg.in_dim)).astype(np.float32)).to(DEV)
     with torch.no_grad():
         d_exp = float((dec2(x) - st_g.decoder(x)).abs().max())
-    print(f"[12a] steady train_step {step_ms:.3f} ms (mean of 20, synchronized); export -> "
+    print(f"[12a] steady train_step {step_ms:.3f} ms at matmul_precision {cfg.matmul_precision!r} (mean of 20, "
+          f"synchronized); export -> "
           f"load_torch_checkpoint: {cfg2 == cfg}, outputs max |d| {d_exp:.3e}")
     check(cfg2 == cfg and d_exp == 0.0, f"12a: exported decoder differs by {d_exp} ({cfg2})")
     return {"fit_s": fit_s, "l1": loss, "radii": radii, "step_ms": step_ms, "loss_rel_err": l_err,
@@ -2291,7 +2329,9 @@ def phase_full_arm(name: str) -> dict:
           f"{rec['frame_ms_p95']:.3f}, max {rec['max_frame_ms']:.3f}; decoder fit {rec['decoder_fit']}; detector "
           f"calls {rec['detector_calls']}, dispatches {disp}, boxes collected {rec['detector_boxes']}; GN calls "
           f"{rec['gn_dispatches']}; K1 launches {k1} (expected {rec['expected_k1_launches']}), K2 launches {k2} "
-          f"({FULL_FRAMES} frames + {rec['n_redone']} re-tracked)")
+          f"({FULL_FRAMES} frames + {rec['n_redone']} re-tracked); decoder at matmul_precision "
+          f"{benchmark_slam.BENCH_DECODER.matmul_precision!r}, compute_dtype "
+          f"{benchmark_slam.BENCH_DECODER.compute_dtype}")
     print("[12b] stages, host ms (p50 / p95 / total / count): " + "; ".join(
         f"{k} {v['p50']:.3f} / {v['p95']:.3f} / {v['total']:.3f} / {v['n']}" for k, v in sorted(rec["stage_ms"].items())))
     check(rec["lost_frames"] == 0, f"12b: {rec['lost_frames']} lost frames")
@@ -2517,7 +2557,8 @@ def phase_sharded_training(name: str) -> dict:
     against the one-process train_step from the same state: the loss of 3
     steps, the first step's gradients, the parameters after steps 1 and 3;
     ms per step of each, in turns."""
-    cfg = deepsdf.DecoderConfig()
+    # float32 products: 13d holds the tp = 2 step's gradients to float64
+    cfg = deepsdf.DecoderConfig(matmul_precision="highest")
     gen = torch.Generator(device=DEV).manual_seed(SLICE8_SEED)
     batches = [deepsdf_train.make_sphere_dataset(gen, SLICE8_SHAPES, SLICE8_BATCH) for _ in range(3)]
     mesh = mesh_utils.make_mesh(device=DEV)
@@ -2734,6 +2775,258 @@ def phase_mesh(tmp: str, decoder, name: str) -> dict:
             "extract": extract, "two_ranks": two}
 
 
+# phase 14: the decoder's configuration contract (slice 9)
+# the layout train_deepsdf --layers 4 --hidden 256 builds
+WIDE_DECODER = deepsdf.DecoderConfig(code_len=64, hidden=(256,) * 4, latent_in=(2,))
+# bf16 vs f32 forward, absolute: 2^-8 rounding at each of 8 activations (11a's bf16 bound)
+BF16_FORWARD_TOL = 5e-2
+GENERIC_SDF_TOL = 1e-5         # the generic path at "highest" vs float64: K1's sdf tolerance (phase 3)
+GENERIC_GRAD_TOL = 1e-4        # and its gradient's: 99th percentile of the row error, a few ReLU-boundary rows over
+
+
+def gn_distance(a: dict, b: dict) -> float:
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in ("t_cam_obj", "code"))
+
+
+class RowCounter(torch.nn.Module):
+    """A decoder whose forward calls (the render grid's decode) record their
+    row counts; sdf_and_input_grad goes to the decoder itself."""
+
+    def __init__(self, decoder):
+        super().__init__()
+        self.decoder = decoder
+        self.rows = []
+
+    def forward(self, x):
+        self.rows.append(x.shape[0])
+        return self.decoder(x)
+
+    def sdf_and_input_grad(self, x):
+        return self.decoder.sdf_and_input_grad(x)
+
+
+def counted_gn(decoder, cfg: gn.GNConfig, args) -> tuple[dict, int, int]:
+    """One GN call under torch.profiler: (result, K1 launches by the
+    wrapper's count, K1 kernels the profiler saw). The count is exact; the
+    profiler is the device's witness, and it may miss a launch of a kernel
+    called through ctypes (19 of 20 once, as `kernel_device_ms` says), so
+    `k1_counted` holds it to at least one and at most the count."""
+    decoder_fused.sdf_and_input_grad.launches = 0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = gn.batched_reconstruct(decoder, cfg)(*args)
+        torch.cuda.synchronize()
+    seen = sum(e.count for e in prof.key_averages() if "decoder_fused_kernel" in e.key)
+    return out, decoder_fused.sdf_and_input_grad.launches, seen
+
+
+def k1_counted(launches: int, seen: int, expected: int) -> bool:
+    """The wrapper launched K1 `expected` times and the profiler saw it on
+    the device (or saw none where none was expected)."""
+    return launches == expected and (seen == 0 if expected == 0 else 0 < seen <= launches)
+
+
+def precision_ab(decs: dict, f64_decoder, args, ref64_iter1: dict | None = None) -> dict:
+    """The GN at `args` with the same weights at "highest" and "default"
+    (`decs`): the two after 1 iteration (k4 = 1e7), and each one's distance
+    from `f64_decoder`'s run after 1 iteration and after 10 with k4 = 0."""
+    out1 = {p: gn.batched_reconstruct(d, gn.GNConfig(code_len=64, num_iterations=1))(*args) for p, d in decs.items()}
+    if ref64_iter1 is None:
+        ref64_iter1 = gn.batched_reconstruct(f64_decoder, gn.GNConfig(code_len=64, num_iterations=1))(
+            *[a.double() for a in args])
+    cfg10 = gn.GNConfig(code_len=64, num_iterations=10, k4=0.0)
+    ref10 = gn.batched_reconstruct(f64_decoder, cfg10)(*[a.double() for a in args])
+    d64_10 = {p: gn_distance(gn.batched_reconstruct(d, cfg10)(*args), ref10) for p, d in decs.items()}
+    r = {"d1": gn_distance(out1["default"], out1["highest"]),
+         "d64_iter1": {p: gn_distance(o, ref64_iter1) for p, o in out1.items()},
+         "d64_iter10_k4_0": d64_10, "bound10": TOL_ITER10_FACTOR * d64_10["highest"] + TOL_ITER10_FLOOR}
+    r["holds"] = r["d1"] <= TOL_ITER1 and d64_10["default"] <= r["bound10"]
+    return r
+
+
+def phase_precision_ab(gn5: dict, fitted, name: str) -> dict:
+    """14a: the GN at bench_gn's inputs on the canonical decoder (K1) at
+    matmul_precision "highest" and "default", with phase 5's random weights
+    and with 12a's decoder fitted to spheres (whose render samples fall in
+    the occupancy band, where the grid's sdf matters): after 1 iteration
+    (k4 = 1e7) the two within TOL_ITER1; after 10 with k4 = 0 "default" as
+    close to a float64 run as phase 5 holds K1 (factor and floor). Either
+    all hold and the shipped default may be "default", or the default must
+    be "highest". ms per object at each precision, in turns (random
+    weights, as phase 5); the render grid's forward per GN call; the
+    generic path's time at N = 2048 and 8192."""
+    B, args = bench_gn_inputs()
+    params_np = canonical_params_np(seed=0)
+    decs = {p: deepsdf.params_from_jax(params_np, deepsdf.DecoderConfig(matmul_precision=p), device=DEV)
+            for p in ("highest", "default")}
+    fitted_decs = {p: deepsdf.DeepSDFDecoder(dataclasses.replace(fitted.config, matmul_precision=p),
+                                             list(fitted.weights), list(fitted.biases))
+                   for p in ("highest", "default")}
+    fitted64 = deepsdf_train.frozen_decoder(fitted).double()
+    fitted64.sdf_and_input_grad = lambda x: decoder_fused.sdf_and_input_grad_plain(
+        list(fitted64.weights), list(fitted64.biases), x)
+    ab = {"random": precision_ab(decs, gn5["f64_decoder"], args, gn5["ref64_iter1"]),
+          "fitted": precision_ab(fitted_decs, fitted64, args)}
+    holds = all(r["holds"] for r in ab.values())
+    shipped = deepsdf.DecoderConfig().matmul_precision
+    for weights, r in ab.items():
+        print(f"[14a] GN at bench_gn shapes, canonical decoder ({weights} weights) with K1, 'default' (TF32 products) "
+              f"vs 'highest' (f32): after 1 iteration (k4 = 1e7) max |d| {r['d1']:.3e} (limit {TOL_ITER1}; vs float64 "
+              f"default {r['d64_iter1']['default']:.3e}, highest {r['d64_iter1']['highest']:.3e}); after 10 with "
+              f"k4 = 0 vs float64: default {r['d64_iter10_k4_0']['default']:.3e}, highest "
+              f"{r['d64_iter10_k4_0']['highest']:.3e} (bound {r['bound10']:.3e})")
+    print(f"[14a] TF32 {'holds' if holds else 'moves the GN'}; the shipped default is {shipped!r}")
+    check(holds or shipped == "highest", f"14a: TF32 moves the GN ({ab}) but the shipped matmul_precision is {shipped!r}")
+
+    cfg = gn.GNConfig(code_len=64, num_iterations=10)
+    runs = {"highest": [], "default": []}
+    for p in ("highest", "default", "default", "highest"):
+        run = gn.batched_reconstruct(decs[p], cfg)
+        runs[p].append(cuda_ms(lambda: run(*args), 3) / B)
+    ms = {p: float(np.mean(v)) for p, v in runs.items()}
+    _, launches, seen = counted_gn(decs[shipped], cfg, args)
+    check(k1_counted(launches, seen, 2 * 10), f"14a: the canonical f32 decoder launched K1 {launches} times "
+                                      f"(profiler {seen}), expected 20")
+    rows = B * args[3].shape[1] * cfg.num_depth_samples
+    grid = torch.rand((rows, 67), device=DEV, generator=torch.Generator(device=DEV).manual_seed(14)) * 2 - 1
+    grid_ms = {}
+    with torch.no_grad():
+        for p in ("highest", "default", "default", "highest"):
+            grid_ms.setdefault(p, []).append(cuda_ms(lambda: decs[p](grid), 3) * cfg.num_iterations)
+    grid_ms = {p: float(np.mean(v)) for p, v in grid_ms.items()}
+    generic_ms = {p: {} for p in decs}
+    for n in (2048, 8192):
+        x = grid[:n].contiguous()
+        for p in ("highest", "default", "default", "highest"):
+            generic_ms[p].setdefault(n, []).append(
+                cuda_ms(lambda: deepsdf.sdf_and_input_grad_generic(decs[p], x), 10))
+    generic_ms = {p: {n: float(np.mean(v)) for n, v in d.items()} for p, d in generic_ms.items()}
+    print(f"[14a] GN ms per object (10 iterations, k4 = 1e7; turns highest, default, default, highest): highest "
+          f"{ms['highest']:.3f} ({runs['highest'][0]:.3f}, {runs['highest'][1]:.3f}), default {ms['default']:.3f} "
+          f"({runs['default'][0]:.3f}, {runs['default'][1]:.3f}); K1 launches {launches} (profiler {seen}); the render "
+          f"grid's forward per GN call ({rows} rows x 10): highest {grid_ms['highest']:.3f} ms, default "
+          f"{grid_ms['default']:.3f} ms; the generic path (forward + autograd, what JAX runs on a GPU) at N = 2048 / "
+          f"8192: highest {generic_ms['highest'][2048]:.4f} / {generic_ms['highest'][8192]:.4f} ms, default "
+          f"{generic_ms['default'][2048]:.4f} / {generic_ms['default'][8192]:.4f} ms on {name}")
+    return {"ab": ab, "tf32_holds": holds, "shipped": shipped, "gn_ms_per_object": ms, "k1_launches": launches,
+            "grid_ms_per_gn": grid_ms, "generic_ms": generic_ms}
+
+
+def phase_other_decoders(name: str) -> dict:
+    """14b: a 4 x 256 decoder (latent_in (2,), as train_deepsdf --layers 4
+    --hidden 256 builds it) with seeded weights: its generic path at
+    "highest" against a float64 generic run (K1's tolerances), sync-free;
+    its GN at bench_gn's inputs finite after 10 iterations with 0 K1
+    launches. 14c: the canonical decoder at compute_dtype bfloat16: its
+    forward within BF16_FORWARD_TOL of the f32 forward, its GN finite with 0
+    K1 launches."""
+    B, args = bench_gn_inputs()
+    gen = torch.Generator(device=DEV).manual_seed(141)
+    x = torch.cat([torch.randn((8192, 64), device=DEV, generator=gen) * 0.02,
+                   torch.rand((8192, 3), device=DEV, generator=gen) * 2 - 1], dim=-1)
+    cfg10 = gn.GNConfig(code_len=64, num_iterations=10)
+    wide_np = canonical_params_np(seed=14, config=WIDE_DECODER)
+    wide = {p: deepsdf.params_from_jax(wide_np, dataclasses.replace(WIDE_DECODER, matmul_precision=p), device=DEV)
+            for p in ("highest", "default")}
+    wide64 = deepsdf.params_from_jax(wide_np, WIDE_DECODER, device=DEV).double()
+    sdf64, grad64 = deepsdf.sdf_and_input_grad_generic(wide64, x.double())
+    errs = {}
+    for p, dec in wide.items():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sdf, grad = dec.sdf_and_input_grad(x)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        row = (grad.double() - grad64).abs().amax(dim=1)
+        errs[p] = {"sdf": float((sdf.double() - sdf64).abs().max()), "grad_p99": float(torch.quantile(row, 0.99)),
+                   "grad_rows_over": int((row > GENERIC_GRAD_TOL).sum()), "grad_max": float(row.max())}
+    e = errs["highest"]
+    check(e["sdf"] <= GENERIC_SDF_TOL and e["grad_p99"] < GENERIC_GRAD_TOL and e["grad_rows_over"] <= 8,
+          f"14b: the generic path at 'highest' is {e} from float64")
+    out_w, launches_w, seen_w = counted_gn(wide[deepsdf.DecoderConfig().matmul_precision], cfg10, args)
+    finite_w = bool(torch.isfinite(out_w["t_cam_obj"]).all() and torch.isfinite(out_w["code"]).all())
+    print(f"[14b] 4 x 256 decoder (latent_in (2,)), generic path on 8192 rows (sync-free) vs float64: 'highest' "
+          f"sdf {e['sdf']:.3e}, gradient rows p99 {e['grad_p99']:.3e} (max {e['grad_max']:.3e}, "
+          f"{e['grad_rows_over']} over {GENERIC_GRAD_TOL}); 'default' sdf {errs['default']['sdf']:.3e}, p99 "
+          f"{errs['default']['grad_p99']:.3e}; GN 10 iterations at bench_gn shapes: finite {finite_w}, is_good "
+          f"{out_w['is_good'].tolist()}, K1 launches {launches_w} (profiler {seen_w})")
+    check(finite_w and k1_counted(launches_w, seen_w, 0),
+          f"14b: GN finite {finite_w}, K1 launches {launches_w} / {seen_w}")
+
+    canon_np = canonical_params_np(seed=0)
+    f32 = deepsdf.params_from_jax(canon_np, deepsdf.DecoderConfig(matmul_precision="highest"), device=DEV)
+    bf16 = deepsdf.params_from_jax(canon_np, deepsdf.DecoderConfig(compute_dtype=torch.bfloat16), device=DEV)
+    with torch.no_grad():
+        d_fwd = float((bf16(x) - f32(x)).abs().max())
+    sdf_b, grad_b = bf16.sdf_and_input_grad(x)
+    sdf_f, grad_f = f32.sdf_and_input_grad(x)
+    d_gen = float((sdf_b - sdf_f).abs().max())
+    g_rel = float((grad_b - grad_f).norm() / grad_f.norm())
+    out_b, launches_b, seen_b = counted_gn(bf16, cfg10, args)
+    finite_b = bool(torch.isfinite(out_b["t_cam_obj"]).all() and torch.isfinite(out_b["code"]).all())
+    print(f"[14c] bf16 canonical decoder: forward (torch.mm out_dtype=float32, bf16 tensor cores) vs the f32 "
+          f"forward max |d| {d_fwd:.3e} (limit {BF16_FORWARD_TOL}); generic path (f32 products of bf16-rounded "
+          f"operands) sdf {d_gen:.3e}, gradient {g_rel:.3e} of the f32 gradient's norm; GN 10 iterations finite "
+          f"{finite_b}, is_good {out_b['is_good'].tolist()}, K1 launches {launches_b} (profiler {seen_b}) on {name}")
+    check(d_fwd <= BF16_FORWARD_TOL and d_gen <= BF16_FORWARD_TOL, f"14c: bf16 forward {d_fwd}, generic {d_gen}")
+    check(finite_b and k1_counted(launches_b, seen_b, 0),
+          f"14c: GN finite {finite_b}, K1 launches {launches_b} / {seen_b}")
+    return {"wide_generic_err": errs, "wide_k1_launches": launches_w, "bf16_forward_err": d_fwd,
+            "bf16_generic_sdf_err": d_gen, "bf16_generic_grad_rel": g_rel, "bf16_k1_launches": launches_b}
+
+
+def phase_render_eval_fraction(name: str) -> dict:
+    """14d: GNConfig.render_eval_fraction at bench_gn's inputs on phase 5's
+    canonical decoder: a fraction whose cap is the most valid samples an
+    object has (so it truncates none) gives the uncapped GN's result
+    exactly after one iteration; at
+    0.5 the GN decodes B * int(R * S / 2) rows per iteration and ends finite
+    after 10, with K1's 20 launches; ms per object of each, in turns."""
+    B, args = bench_gn_inputs()
+    R, S = args[3].shape[1], gn.GNConfig().num_depth_samples
+    dec = deepsdf.params_from_jax(canonical_params_np(seed=0), device=DEV)
+    aux = losses.render_loss(dec, args[3], args[4], args[5], args[6], lie.inverse_sim3(args[0]), args[7])[3]
+    k_none = n_valid = int(aux["n_valid_query"].max())
+    fraction_none = (k_none + 0.5) / (R * S)        # int(R * S * fraction) is k_none
+    check(int(R * S * fraction_none) == k_none < R * S, f"14d: fraction {fraction_none} does not give {k_none}")
+    base1 = gn.GNConfig(code_len=64, num_iterations=1)
+    uncapped = gn.batched_reconstruct(dec, base1)(*args)
+    counter = RowCounter(dec)
+    capped = gn.batched_reconstruct(counter, dataclasses.replace(base1, render_eval_fraction=fraction_none))(*args)
+    equal = all(torch.equal(capped[k], uncapped[k]) for k in uncapped)
+    diff = gn_distance(capped, uncapped)
+    print(f"[14d] render_eval_fraction {fraction_none:.6f} (cap {k_none} of {R * S} samples, the most valid samples "
+          f"of an object): decoded rows {counter.rows}; one GN iteration equals the uncapped one: {equal} "
+          f"(max |d| {diff:.3e})")
+    check(counter.rows == [B * k_none] and equal, f"14d: capped GN rows {counter.rows}, equal {equal} ({diff})")
+
+    cfg = gn.GNConfig(code_len=64, num_iterations=10, render_eval_fraction=0.5)
+    counter = RowCounter(dec)
+    out, launches, seen = counted_gn(counter, cfg, args)
+    finite = bool(torch.isfinite(out["t_cam_obj"]).all() and torch.isfinite(out["code"]).all())
+    want = [B * int(R * S * 0.5)] * 10
+    runs = {"uncapped": [], "0.5": []}
+    for path in ("uncapped", "0.5", "0.5", "uncapped"):
+        run = gn.batched_reconstruct(dec, cfg if path == "0.5" else dataclasses.replace(cfg, render_eval_fraction=None))
+        runs[path].append(cuda_ms(lambda: run(*args), 3) / B)
+    ms = {k: float(np.mean(v)) for k, v in runs.items()}
+    print(f"[14d] render_eval_fraction 0.5: decoded rows per iteration {sorted(set(counter.rows))} over "
+          f"{len(counter.rows)} iterations (expected {want[0]} x 10); finite {finite}, is_good {out['is_good'].tolist()}, "
+          f"K1 launches {launches} (profiler {seen}); GN ms per object: 0.5 {ms['0.5']:.3f}, uncapped "
+          f"{ms['uncapped']:.3f} on {name}")
+    check(counter.rows == want and finite and k1_counted(launches, seen, 2 * 10),
+          f"14d: rows {counter.rows}, finite {finite}, K1 launches {launches} / {seen}")
+    return {"n_valid": n_valid, "fraction_none": fraction_none, "equal": equal, "ms_per_object": ms}
+
+
+def phase_decoder_contract(gn5: dict, fitted, name: str) -> dict:
+    """14a-14d on phase 5's float64 run and 12a's fitted decoder."""
+    ab = phase_precision_ab(gn5, fitted, name)
+    other = phase_other_decoders(name)
+    fraction = phase_render_eval_fraction(name)
+    return {"precision_ab": ab, "other_decoders": other, "render_eval_fraction": fraction}
+
+
 def main():
     # cuBLAS is deterministic (phase 12c) only with a fixed workspace
     # configuration, read when the process makes its first handle
@@ -2767,7 +3060,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_slice(tmp)
         seconds("4")
-        ms = phase_gn(name)
+        gn5 = phase_gn(name)
+        ms = gn5["ms"]
         seconds("5")
 
         system_cfg = SystemConfig.from_json(KITTI_CONFIG)
@@ -2830,10 +3124,17 @@ def main():
         seconds("12")
 
         t13 = time.perf_counter()
-        slice8 = phase_mesh(tmp, fit.pop("decoder"), name)
+        fitted = fit.pop("decoder")
+        slice8 = phase_mesh(tmp, fitted, name)
         slice8["seconds"] = time.perf_counter() - t13
         print(f"[13] slice 8 phases: {slice8['seconds']:.1f} s")
         seconds("13")
+
+        t14 = time.perf_counter()
+        slice9 = phase_decoder_contract(gn5, fitted, name)
+        slice9["seconds"] = time.perf_counter() - t14
+        print(f"[14] slice 9 phases: {slice9['seconds']:.1f} s")
+        seconds("14")
 
     slice5 = {
         "long_loop": {k: loop["record"][k] for k in ("ate_before_loop_cm", "ate_after_loop_cm",
@@ -2852,6 +3153,7 @@ def main():
                                  "closed_loops": loops, "vocabulary": vocab, "overlays": overlays,
                                  "seconds": t12}}))
     print(json.dumps({"slice8": slice8}))
+    print(json.dumps({"slice9": slice9}))
     print(name)
     kernels = [{
         "name": "decoder_fused", "route": "cuda", "source": SRC, "replaces": REPLACES,
@@ -2874,6 +3176,11 @@ def main():
         "detector_slam_launches": online["k1_launches"],
         "full_arm_launches": full["k1_launches"], "full_arm_profile_k1_ms": full["profile"]["k1_ms"],
         "sharded_gn_launches": {"13b": slice8["gn"]["k1_launches"], "13d": slice8["two_ranks"]["k1_launches"]},
+        "decoder_contract_launches": {"canonical_f32": slice9["precision_ab"]["k1_launches"],
+                                      "wide_4x256": slice9["other_decoders"]["wide_k1_launches"],
+                                      "bf16": slice9["other_decoders"]["bf16_k1_launches"]},
+        "gn_ms_per_object_by_precision": slice9["precision_ab"]["gn_ms_per_object"],
+        "generic_path_ms": slice9["precision_ab"]["generic_ms"],
     }, {
         "name": "fast_score", "route": "cuda", "source": K2_SRC, "replaces": K2_REPLACES,
         "launches": trk["launches"], "max_abs_err": k2["max_abs_err"],

@@ -32,6 +32,7 @@ from . import _nvcc
 IN_DIM = 67            # 64 code + 3 xyz
 HID = 512
 NARROW = HID - IN_DIM  # 445: layer-3 output width
+LATENT_IN = 4          # the layer whose input re-joins the decoder's input
 CANONICAL_SHAPES = (
     [(HID, IN_DIM), (HID, HID), (HID, HID), (NARROW, HID)]
     + [(HID, HID)] * 4
@@ -230,39 +231,30 @@ def sdf_and_input_grad(weights, biases, inputs: torch.Tensor, cluster: int | Non
 sdf_and_input_grad.launches = 0
 
 
-def sdf_and_input_grad_plain(
-    weights, biases, inputs: torch.Tensor, latent_in: Sequence[int] = (4,),
-    use_tanh: bool = False, final_tanh: bool = True,
-):
+def sdf_and_input_grad_plain(weights, biases, inputs: torch.Tensor):
     """Plain PyTorch version: explicit forward keeping the pre-activations,
-    then the backward to the input by transposed matmuls and ReLU masks.
-    Works for any DeepSDF layout (the defaults are the canonical one)."""
+    then the backward to the input by transposed matmuls and ReLU masks, for
+    the canonical layout (the input re-injected at layer 4, a final tanh).
+    Any other layout takes `models.deepsdf.sdf_and_input_grad_generic`."""
     orig = inputs
     x = inputs
     last = len(weights) - 1
     zs = []
     for layer, (w, b) in enumerate(zip(weights, biases)):
-        if layer in latent_in:
+        if layer == LATENT_IN:
             x = torch.cat([x, orig], dim=-1)
         z = torch.nn.functional.linear(x, w, b)
         if layer < last:
             zs.append(z)
             x = torch.relu(z)
-    y = z[..., 0]
-    g = torch.ones_like(y)
-    if use_tanh:
-        y = torch.tanh(y)
-        g = 1.0 - y * y
-    if final_tanh:
-        y = torch.tanh(y)
-        g = g * (1.0 - y * y)
+    y = torch.tanh(z[..., 0])
 
     d = orig.shape[-1]
-    g = g[..., None] * weights[last][0]           # d sdf / d h_{last-1}
+    g = (1.0 - y * y)[..., None] * weights[last][0]   # d sdf / d h_{last-1}
     g_orig = torch.zeros_like(orig)
     for layer in range(last - 1, -1, -1):
         g = (g * (zs[layer] > 0)) @ weights[layer]  # d sdf / d (layer input)
-        if layer in latent_in:
+        if layer == LATENT_IN:
             g_orig = g_orig + g[..., -d:]
             g = g[..., :-d]
     return y, g + g_orig

@@ -5,21 +5,43 @@ Port of dspslam_tpu/models/deepsdf.py: the auto-decoder MLP of DSP-SLAM
 -> linear -> tanh), loadable from reference DeepSDF experiment directories
 (`specs.json` + `ModelParameters/<ckpt>.pth`, weight-norm folded).
 
-Weights keep the `nn.Linear` layout (out, in) and never require grad: the
-Gauss-Newton stack takes input Jacobians from `sdf_and_input_grad`, which
-dispatches on the tensor it is given:
+Weights keep the `nn.Linear` layout (out, in) in float32 and never require
+grad: the Gauss-Newton stack takes input Jacobians from
+`sdf_and_input_grad`, which dispatches on the config, as the JAX package's
+`fused_kernel_ok` does, and then on the tensor:
 
-* CPU tensor: the plain PyTorch version (explicit forward + backward);
-* CUDA tensor, canonical decoder: the fused CUDA kernel K1
-  (kernels/decoder_fused.py), at every size;
-* CUDA tensor, any other decoder: an error naming the config. There is
-  no quiet fallback.
+* a decoder that kernel K1 computes (`supports`: the canonical layout in
+  float32): K1 (kernels/decoder_fused.py) on a CUDA tensor, at every size
+  and every matmul precision (its 3xTF32 products keep float32 accuracy),
+  and K1's plain version on a CPU tensor;
+* any other decoder: `sdf_and_input_grad_generic`, one batched autograd
+  pass (JAX's `vmap(value_and_grad)`), on either device.
 
-The decoder runs in float32 throughout.
+The config's arithmetic is JAX's (`apply`):
+
+* `compute_dtype`: inputs, activations and weights are cast to it, each
+  product accumulates in float32 and the bias is added in float32; the
+  output is float32. At float32 the module computes in its own dtype (a
+  float64 copy is a reference). At bfloat16 a product on the card runs as
+  `torch.mm(..., out_dtype=torch.float32)`; where autograd records it (the
+  generic path, training) and on the CPU, which have no kernel or formula
+  for that op, it runs as a float32 product of the bf16-rounded operands.
+  Each product of two bf16 values is exact in float32, so both forms do
+  the arithmetic of a bf16 product with f32 accumulation, up to summation
+  order.
+* `matmul_precision`, per call on a CUDA tensor: "highest" is float32,
+  "default" and "high" are TF32, as XLA maps them on an H100. On the CPU
+  all three are float32, as XLA:CPU's are. The port's default is
+  "highest", where JAX's is "default" (see the field).
+  `matmul_precision_scope` sets cuBLAS's TF32 switch around the decoder's
+  own products (forward and, in the generic path and the trainer,
+  backward) and restores it after them, raising or not: the rest of the
+  system runs its geometry in float32.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -31,6 +53,9 @@ from torch import nn
 
 from ..kernels import decoder_fused
 
+# matmul_precision -> whether cuBLAS may run float32 products as TF32
+TF32_BY_PRECISION = {"highest": False, "high": True, "default": True}
+
 
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
@@ -39,6 +64,15 @@ class DecoderConfig:
     latent_in: tuple[int, ...] = (4,)
     use_tanh: bool = False          # tanh on the last linear's output
     final_tanh: bool = True         # the reference's always-present `th`
+    compute_dtype: torch.dtype = torch.float32
+    # JAX's default is "default" (TF32 on an H100). The port ships
+    # "highest": on the card TF32 moves one GN iteration of a fitted
+    # decoder 100x further from float64 (chip_smoke.py phase 14a; ROADMAP
+    # R10). "default" and "high" stay available per decoder.
+    matmul_precision: str = "highest"
+
+    def __post_init__(self):
+        tf32_for(self.matmul_precision)
 
     @property
     def in_dim(self) -> int:
@@ -66,7 +100,77 @@ def supports(config: DecoderConfig) -> bool:
         and tuple(config.latent_in) == (4,)
         and not config.use_tanh
         and config.final_tanh
+        and config.compute_dtype == torch.float32
     )
+
+
+def tf32_for(precision: str) -> bool:
+    """Whether cuBLAS may run the decoder's float32 products as TF32 at
+    `precision`; an unknown precision raises."""
+    if precision not in TF32_BY_PRECISION:
+        raise ValueError(f"unknown matmul_precision {precision!r}; expected one of {sorted(TF32_BY_PRECISION)}")
+    return TF32_BY_PRECISION[precision]
+
+
+@contextlib.contextmanager
+def matmul_precision_scope(precision: str):
+    """cuBLAS's TF32 switch set for `precision` inside the block and
+    restored after it, also when the block raises. The switch acts on CUDA
+    products only, so on the CPU every precision is float32. It is
+    process-wide: the port calls the decoder and its geometry from one
+    thread."""
+    tf32 = tf32_for(precision)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+           compute_dtype: torch.dtype) -> torch.Tensor:
+    """x (..., in) @ w (out, in)^T (+ b): at float32 in the operands' own
+    dtype; otherwise x (already in compute_dtype) times w rounded to
+    compute_dtype, accumulated in float32, plus the float32 bias. On the
+    card a product that autograd need not record is one
+    `torch.mm(..., out_dtype=torch.float32)` (bf16 tensor cores, f32
+    accumulation); the others, and every one on the CPU (which has no
+    kernel for it), are float32 products of the rounded operands."""
+    if compute_dtype == torch.float32:
+        return nn.functional.linear(x, w, b)
+    wc = w.to(compute_dtype)
+    if x.is_cuda and not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
+        y = torch.mm(x.reshape(-1, x.shape[-1]), wc.t(), out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+    else:
+        y = nn.functional.linear(x.float(), wc.float())
+    return y if b is None else y + b.float()
+
+
+def mlp(config: DecoderConfig, weights, biases, inputs: torch.Tensor, layer_fn=None) -> torch.Tensor:
+    """The decoder's function of (..., code_len + 3) inputs -> (...,), with
+    JAX's `apply` arithmetic. `layer_fn(layer, x, w, b)` computes one
+    linear layer (by default `linear` in the config's compute dtype)."""
+    cdt = config.compute_dtype
+    reduced = cdt != torch.float32
+    if layer_fn is None:
+        def layer_fn(_, x, w, b):
+            return linear(x, w, b, cdt)
+    x = inputs.to(cdt) if reduced else inputs
+    orig = x
+    last = len(weights) - 1
+    for layer, (w, b) in enumerate(zip(weights, biases)):
+        if layer in config.latent_in:
+            x = torch.cat([x, orig], dim=-1)
+        x = layer_fn(layer, x, w, b)
+        if layer == last and config.use_tanh:
+            x = torch.tanh(x)
+        if layer < last:
+            x = torch.relu(x)
+            if reduced:
+                x = x.to(cdt)
+    x = x[..., 0]
+    return torch.tanh(x) if config.final_tanh else x
 
 
 class DeepSDFDecoder(nn.Module):
@@ -88,37 +192,26 @@ class DeepSDFDecoder(nn.Module):
         )
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
-        cfg = self.config
-        x = inputs
-        last = len(self.weights) - 1
-        for layer, (w, b) in enumerate(zip(self.weights, self.biases)):
-            if layer in cfg.latent_in:
-                x = torch.cat([x, inputs], dim=-1)
-            x = nn.functional.linear(x, w, b)
-            if layer == last and cfg.use_tanh:
-                x = torch.tanh(x)
-            if layer < last:
-                x = torch.relu(x)
-        x = x[..., 0]
-        return torch.tanh(x) if cfg.final_tanh else x
+        with matmul_precision_scope(self.config.matmul_precision):
+            return mlp(self.config, self.weights, self.biases, inputs)
 
     def sdf_and_input_grad(self, inputs: torch.Tensor):
         """(N, code_len + 3) -> (sdf (N,), d sdf / d input (N, code_len + 3))."""
-        cfg = self.config
-        if inputs.is_cuda:
-            if not supports(cfg):
-                raise ValueError(
-                    f"no CUDA kernel computes sdf_and_input_grad for {cfg}; "
-                    "the fused kernel takes the canonical decoder only"
-                )
-            return decoder_fused.sdf_and_input_grad(
-                list(self.weights), list(self.biases), inputs
-            )
-        return decoder_fused.sdf_and_input_grad_plain(
-            list(self.weights), list(self.biases), inputs,
-            latent_in=cfg.latent_in, use_tanh=cfg.use_tanh,
-            final_tanh=cfg.final_tanh,
-        )
+        if not supports(self.config):
+            return sdf_and_input_grad_generic(self, inputs)
+        return decoder_fused.sdf_and_input_grad(list(self.weights), list(self.biases), inputs)
+
+
+def sdf_and_input_grad_generic(decoder: nn.Module, inputs: torch.Tensor):
+    """Any decoder's sdf (N,) and input gradient (N, D) from one batched
+    autograd pass: rows are independent, so the gradient of the sum is
+    every row's gradient (JAX's `vmap(value_and_grad)`). Forward and
+    backward run at the decoder's matmul precision; no host sync."""
+    with matmul_precision_scope(decoder.config.matmul_precision), torch.enable_grad():
+        x = inputs.detach().requires_grad_(True)
+        sdf = decoder(x)
+        (grad,) = torch.autograd.grad(sdf.sum(), x)
+    return sdf.detach(), grad
 
 
 def init_params(config: DecoderConfig, generator: torch.Generator,
@@ -197,8 +290,9 @@ def _fold_weight_norm(state: dict, prefix: str):
 
 
 def load_torch_checkpoint(experiment_dir: str, checkpoint: str = "latest",
-                          device=None):
-    """Load a DeepSDF experiment dir -> (config, DeepSDFDecoder).
+                          device=None, compute_dtype: torch.dtype = torch.float32):
+    """Load a DeepSDF experiment dir -> (config, DeepSDFDecoder), the config
+    at `compute_dtype`.
 
     Weight-norm parametrization is folded into plain weights and
     DataParallel 'module.' prefixes are stripped.
@@ -211,6 +305,7 @@ def load_torch_checkpoint(experiment_dir: str, checkpoint: str = "latest",
         hidden=tuple(net["dims"]),
         latent_in=tuple(net.get("latent_in", ())),
         use_tanh=bool(net.get("use_tanh", False)),
+        compute_dtype=compute_dtype,
     )
     path = os.path.join(experiment_dir, "ModelParameters", checkpoint + ".pth")
     saved = torch.load(path, map_location="cpu", weights_only=True)

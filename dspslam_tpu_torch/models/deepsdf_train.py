@@ -9,9 +9,10 @@ codes with an L2 prior, one Adam step over both.
 The JAX `TrainState(params, codes, opt_state, step)` becomes a `TrainState`
 holding a trainable `DeepSDFDecoder`, an `nn.Parameter` code table and a
 `torch.optim.Adam` (optax's defaults: betas 0.9 / 0.999, eps 1e-8 added
-outside the square root). Everything runs in float32 with TF32 off on the
-card (ROADMAP's precision rule); nothing here reaches kernel K1, whose
-wrapper computes values and input gradients for the GN, not weight
+outside the square root). The decoder's products, forward and backward,
+run at its config's compute dtype and matmul precision, as JAX's trainer
+runs `apply`; everything else is float32. Nothing here reaches kernel K1,
+whose wrapper computes values and input gradients for the GN, not weight
 gradients. `fit_spheres`' `lax.scan` chunks (a relay workaround) are not
 ported: the loop is eager.
 
@@ -171,8 +172,11 @@ def train_step(state: TrainState, batch: dict, clamp: float = 0.1) -> torch.Tens
     if state.mesh is not None:
         batch = mesh_utils.batch_sharding(state.mesh)(batch)
     state.optimizer.zero_grad(set_to_none=False)
-    loss = sdf_loss(state.decoder, state.codes, batch["shape_idx"], batch["xyz"], batch["sdf"], clamp=clamp)
-    loss.backward()
+    # the decoder's products run at its precision backward too, as JAX's
+    # value_and_grad of `apply` does; the loss adds no product of its own
+    with deepsdf.matmul_precision_scope(state.decoder.config.matmul_precision):
+        loss = sdf_loss(state.decoder, state.codes, batch["shape_idx"], batch["xyz"], batch["sdf"], clamp=clamp)
+        loss.backward()
     if state.mesh is not None:
         loss = _average_over_dp(state, loss)
     state.optimizer.step()

@@ -102,24 +102,20 @@ class TensorParallelDecoder(nn.Module):
         self.biases = nn.ParameterList(nn.Parameter(b) for b in bs)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
-        cfg = self.config
-        x = inputs
-        last = len(self.weights) - 1
-        for layer, (w, b, kind) in enumerate(zip(self.weights, self.biases, self.kinds)):
-            if layer in cfg.latent_in:
-                x = torch.cat([x, inputs], dim=-1)
+        """The full decoder's function at its config's compute dtype and
+        matmul precision (`deepsdf.mlp`), each layer split by its kind."""
+        cdt = self.config.compute_dtype
+
+        def layer_fn(layer, x, w, b):
+            kind = self.kinds[layer]
             if kind == COLUMN:
-                x = nn.functional.linear(_CopyToTP.apply(x, self.group), w, b)
-            elif kind == ROW:
-                x = _ReduceFromTP.apply(nn.functional.linear(x, w), self.group) + b
-            else:
-                x = nn.functional.linear(x, w, b)
-            if layer == last and cfg.use_tanh:
-                x = torch.tanh(x)
-            if layer < last:
-                x = torch.relu(x)
-        x = x[..., 0]
-        return torch.tanh(x) if cfg.final_tanh else x
+                return deepsdf.linear(_CopyToTP.apply(x, self.group), w, b, cdt)
+            if kind == ROW:
+                return _ReduceFromTP.apply(deepsdf.linear(x, w, None, cdt), self.group) + b
+            return deepsdf.linear(x, w, b, cdt)
+
+        with deepsdf.matmul_precision_scope(self.config.matmul_precision):
+            return deepsdf.mlp(self.config, self.weights, self.biases, inputs, layer_fn)
 
     def shard(self, weights, biases) -> tuple[list, list]:
         """This rank's slices of full tensors laid out as the decoder's

@@ -49,8 +49,8 @@ class GNConfig:
     num_iterations: int = 10
     max_grad_points: int = 1024
     min_render_points: int = 10
-    # Not used by the port (the JAX package's render-grid decode cap, off
-    # by default there); kept so native config files load unchanged.
+    # decode at most int(R * S * fraction) render-grid samples per object,
+    # the valid ones first (None decodes the whole grid)
     render_eval_fraction: float | None = None
     # trust region on the per-iteration log-scale step: the scale/code
     # product is weakly constrained, so unbounded steps can inflate the
@@ -106,6 +106,11 @@ def reconstruct_object(
     # rays: mono detections carry background rays alone, and a small
     # PCA-seeded scale can leave no sample inside the canonical unit ball
     render_required = torch.sum(fg_mask, dim=-1) > 0
+    # a static cap (a Python int from the shapes), so the loop stays sync-free
+    max_eval_points = (
+        None if config.render_eval_fraction is None
+        else int(rays.shape[1] * config.num_depth_samples * config.render_eval_fraction)
+    )
 
     for _ in range(config.num_iterations):
         J_s, r_s, m_s = losses.sdf_surface_loss(
@@ -115,7 +120,7 @@ def reconstruct_object(
         J_r, r_r, m_r, aux = losses.render_loss(
             decoder, rays, ray_mask, depth_obs, fg_mask, t_obj_cam, code,
             num_samples=config.num_depth_samples, cut_off=config.cut_off,
-            max_grad_points=config.max_grad_points,
+            max_grad_points=config.max_grad_points, max_eval_points=max_eval_points,
         )
         rr_r, render_loss_val, _ = robust_residuals(r_r, config.b1, m_r)
         J_rot, r_rot = losses.rotation_prior_loss(t_obj_cam)

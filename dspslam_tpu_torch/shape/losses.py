@@ -3,8 +3,9 @@ rotation prior. Port of dspslam_tpu/shape/losses.py with the objects of
 a keyframe in an explicit leading batch dimension B.
 
 Everything is fixed-shape: inputs are padded to static caps with validity
-masks; the render loss decodes the full (R rays x S samples) grid in one
-batched forward and derives de/do in closed form as a suffix sum of
+masks; the render loss decodes the full (R rays x S samples) grid, or a
+static-size subset of it (`max_eval_points`), in one batched forward and
+derives de/do in closed form as a suffix sum of
 transmittances; the SDF input-Jacobians are computed only for a static
 top-K subset of samples with gradient (|sdf| < cutoff and de/do > 1e-2).
 K must exceed the in-band count (~250 at 512 rays x 50 samples), so the
@@ -70,6 +71,7 @@ def render_loss(
     max_grad_points: int = 1024,
     res_clamp: float = 0.30,
     min_grad_threshold: float = 1e-2,
+    max_eval_points: int | None = None,
 ):
     """Differentiable depth-render term.
 
@@ -77,6 +79,11 @@ def render_loss(
     around the object center (s = object scale); the expected ray depth
     under the occupancy transmittance model is compared with the observed
     depth (foreground) or 1.1 * d_max (background).
+
+    With `max_eval_points` below R * S, each object decodes only that many
+    grid samples: the valid ones first, lowest index first (`lax.top_k`'s
+    order over the 0/1 validity), and every other sample reads sdf 1e3 (no
+    occupancy). Nothing changes unless the cap truncates valid samples.
 
     Returns (J (B, K, 7+L), res (B, K), mask (B, K), aux) with
     K = max_grad_points and aux = {d_u (B, R), n_valid_query (B,),
@@ -103,8 +110,19 @@ def render_loss(
     in_ball = torch.linalg.vector_norm(pts_obj + 1e-12, dim=-1) < 1.0
     valid = in_ball.reshape(B, R, S) & (ray_mask[..., None] > 0)
 
-    # occupancy over the whole ray x sample grid: one batched forward
-    sdf = decoder(_with_code(code, pts_obj)).reshape(B, R, S)
+    # occupancy over the ray x sample grid: one batched forward, of the
+    # whole grid or of a static-size subset of it
+    if max_eval_points is not None and max_eval_points < R * S:
+        flat_valid = valid.reshape(B, R * S).to(dt)
+        eval_idx = torch.sort(flat_valid, dim=-1, descending=True, stable=True).indices[:, :max_eval_points]
+        pts_eval = torch.gather(pts_obj, 1, eval_idx[..., None].expand(-1, -1, 3))
+        sdf_eval = decoder(_with_code(code, pts_eval)).reshape(B, max_eval_points)
+        live = torch.gather(flat_valid, 1, eval_idx) > 0
+        sdf = torch.full((B, R * S), 1e3, device=dev, dtype=dt).scatter(
+            1, eval_idx, torch.where(live, sdf_eval, torch.full_like(sdf_eval, 1e3))
+        ).reshape(B, R, S)
+    else:
+        sdf = decoder(_with_code(code, pts_obj)).reshape(B, R, S)
     occ = torch.where(valid, sdf_to_occupancy(sdf, cut_off), torch.zeros_like(sdf))
 
     # transmittance rendering

@@ -83,10 +83,21 @@ def test_k1_repacks_after_an_in_place_weight_update(cuda):
 
 @pytest.mark.cuda
 def test_non_canonical_decoder_raises(cuda):
-    cfg = deepsdf.DecoderConfig(code_len=8, hidden=(32,) * 4, latent_in=(2,))
+    """A decoder K1 does not compute takes the generic path on the card (no
+    K1 launch), at the tolerances above against a float64 run; only an
+    unknown matmul precision raises, naming it."""
+    cfg = deepsdf.DecoderConfig(code_len=8, hidden=(32,) * 4, latent_in=(2,), matmul_precision="highest")
     dec = deepsdf.init_params(cfg, torch.Generator().manual_seed(0), cuda)
-    with pytest.raises(ValueError, match="code_len=8"):
-        dec.sdf_and_input_grad(torch.zeros((4, 11), device=cuda))
+    x = torch.from_numpy((np.random.default_rng(4).normal(size=(300, 11)) * 0.3).astype(np.float32)).to(cuda)
+    before = decoder_fused.sdf_and_input_grad.launches
+    sdf, grad = dec.sdf_and_input_grad(x)
+    sdf64, grad64 = deepsdf.sdf_and_input_grad_generic(dec.double(), x.double())
+    assert decoder_fused.sdf_and_input_grad.launches == before
+    assert (sdf.double() - sdf64).abs().max().item() <= 1e-5
+    err = (grad.double() - grad64).abs().amax(dim=1).cpu().numpy()
+    assert np.quantile(err, 0.99) < 1e-4 and (err > 1e-4).sum() <= 3
+    with pytest.raises(ValueError, match="'medium'"):
+        deepsdf.DecoderConfig(matmul_precision="medium")
 
 
 @pytest.mark.cuda
