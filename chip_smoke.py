@@ -4,8 +4,9 @@ version, drives single-frame object reconstruction, stereo tracking,
 object SLAM in stereo, mono and RGB-D, place recognition with loop
 closing, the online detectors, the decoder fit with the benchmark's full
 workload, the detector and vocabulary trainers, the overlays, the
-(dp, tp) mesh and the decoder's configuration contract through their
-entry points, and times them.
+(dp, tp) mesh, the decoder's configuration contract and the headline
+benchmark entry (`apps.bench`) through their entry points, and times
+them.
 
     python3 chip_smoke.py
 
@@ -53,8 +54,8 @@ Phases (any failure exits non-zero, and no result line is printed):
         at KITTI intrinsics, 376x1241, 2000 features, 8 levels, 20 frames
         through a 30-degree turn: 0 lost frames, ATE < 3% of travel, every
         static object within 0.35 m of a true sphere centre, an applied
-        local BA solve with a camera-object edge inlier; then the
-        points-only BA arm (`--ba_no_objects`) as the A/B;
+        local BA solve with a camera-object edge inlier (the points-only
+        A/B runs at the full workload in phase 15);
      b. `apps.dsp_slam.build_system` at configs/kitti_00_02.json with phase
         4's seeded random full-width DeepSDF over phase 7's turn, GT-derived
         sphere detections: 0 lost frames, ATE < 3% of travel, finite
@@ -74,12 +75,14 @@ Phases (any failure exits non-zero, and no result line is printed):
   9. monocular and RGB-D SLAM (slice 4) through their entry points, at
      configs/freiburg_001.json's camera (960x540, fx 930.2, 4000 features,
      8 levels): K2 exact on a mono frame's 8 level maps in one launch, timed;
-     a. `apps.benchmark_slam.main(["--mono", "--mono_profile", "freiburg"])`
-        over 40 frames of a strafe with a 20-degree view yaw, pipelined then
-        not: two-view initialization within the first 10 frames, 0 frames
-        lost after it, Sim(3)-aligned ATE < 3% of travel, K2 once per
-        extracted frame (re-tracked frames included); mean and median fps,
-        p99 frame ms, stage times; a 20-frame `--paced` run's drop rate at 25 fps;
+     a. the bench entry's `mono_freiburg` arm (`apps.benchmark_slam.main(
+        ["--frames", "30", "--mono", "--mono_profile", "freiburg"])`) over
+        30 frames of a strafe with a 20-degree view yaw, pipelined, then not
+        pipelined: two-view initialization within the first 10
+        frames, 0 frames lost after it, Sim(3)-aligned ATE < 3% of travel,
+        K2 once per extracted frame (re-tracked frames included); mean and
+        median fps, p99 frame ms, stage times; the entry's 30-frame `paced`
+        arm: its drop rate at 25 fps, K2 once per extracted frame;
         a `torch.profiler` table of 4 pipelined frames, the Hamming
         matrices' time and peak memory at 4000 features, and one
         `track_frame_mono_chained` under set_sync_debug_mode("error");
@@ -99,7 +102,8 @@ Phases (any failure exits non-zero, and no result line is printed):
         travel, one K2 launch per frame.
  10. place recognition, relocalization and loop closing (slice 5) through
      their entry points:
-     a. `apps.benchmark_slam.main(["--long_loop"])`: 201 keyframes of the
+     a. the bench entry's `long_loop` arm (`apps.benchmark_slam.main(
+        ["--frames", "100", "--long_loop"])`): 201 keyframes of the
         fabricated street loop, a vocabulary trained in-process: 1 loop
         closed, ATE after <= 10% of before (printed beside the JAX
         package's TPU mark); the essential-graph and global-BA solves timed
@@ -157,7 +161,8 @@ Phases (any failure exits non-zero, and no result line is printed):
         CPU's or 1e-4 of a tensor's largest entry); the exported
         experiment dir through `load_torch_checkpoint` gives equal outputs;
         the steady ms per step;
-     b. `apps.benchmark_slam.main(["--frames", "56"])`, the full workload
+     b. the bench entry's `full` arm (`apps.benchmark_slam.main(["--frames",
+        "56"])`), the full workload
         (bench.py's 56 frames, 18 warm-up): Mask R-CNN and PointPillars at
         full width on every keyframe inside the measured loop, the decoder
         fitted at startup: 0 lost frames, ATE < 3% of travel, every static
@@ -223,19 +228,35 @@ Phases (any failure exits non-zero, and no result line is printed):
         has gives the uncapped GN exactly after one iteration; 0.5 decodes B x
         int(R S / 2) rows per iteration and ends finite after 10 with 20 K1
         launches; ms per object of each.
-The last lines are JSON summaries of slice 5's to slice 9's numbers, the
+ 15. the headline benchmark entry, `apps.bench.main([])` (`python -m
+     dspslam_tpu_torch.apps.bench`), every arm of bench.py's `_measure`
+     but the relay probes: its `full`, `mono_freiburg`, `paced` and
+     `long_loop` records are those of 12b, 9a and 10a (which ran them
+     through the entry's functions), so no benchmark_slam argv runs twice;
+     it runs `ab` (the full workload with points-only BA), `mono_redwood`
+     (30 frames at 640x480) and `gn` (bench_gn by wall clock) itself. Its
+     two JSON lines are printed; every arm's keys present and finite, no
+     `<arm>_error`, fps > 0, 0 lost frames, both A/B arms' ATE < 3% of
+     travel, the long loop's ATE after <= 10% of before, the paced drop
+     rate in [0, 1]; K1 launched 11 x 20 times in `gn` and as the object GN
+     calls need in `ab`, K2 once per extracted frame in `ab` and
+     `mono_redwood`.
+The last lines are JSON summaries of slice 5's to slice 10's numbers, the
 card, a JSON summary of the kernels (K1's and K2's
 `slam_launches` count phase 8b, their `mono_launches` phases 9b and 9a,
 `loop_slam_launches` / `loop_launches` phase 10, `detector_slam_launches`
 phase 11d, `full_arm_launches` phase 12b, K2's `vocabulary_launches` 12d,
 K1's `sharded_gn_launches` 13b and 13d per rank, its
 `decoder_contract_launches` 14a-14c, the GN's ms per object by precision
-and the generic path's times) and {"ok": true, "device": {...}}.
+and the generic path's times, both kernels' `bench_launches` by arm of the
+entry) and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -255,15 +276,16 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
 
 from dspslam_tpu_torch.apps import (  # noqa: E402
-    benchmark_detectors, benchmark_slam, dsp_slam, dsp_slam_mono, extract_map_objects, reconstruct_frame,
+    bench, benchmark_detectors, benchmark_slam, dsp_slam, dsp_slam_mono, extract_map_objects, reconstruct_frame,
     train_vocabulary,
 )
+from dspslam_tpu_torch.apps.bench import canonical_params_np  # noqa: E402
 from dspslam_tpu_torch.backend import ba, pose_graph  # noqa: E402
 from dspslam_tpu_torch.config import SystemConfig  # noqa: E402
 from dspslam_tpu_torch.datasets.kitti import KITTISequence  # noqa: E402
 from dspslam_tpu_torch.datasets.mono import build_mono_detection  # noqa: E402
 from dspslam_tpu_torch.datasets.synthetic import (  # noqa: E402
-    blob_images, kitti_turn_sequence, render_stereo_u8,
+    blob_images, kitti_turn_sequence, render_poses, render_stereo_u8,
 )
 from dspslam_tpu_torch.detect import (  # noqa: E402
     layers, maskrcnn, maskrcnn_train, offline, pointpillars, pointpillars_train,
@@ -341,17 +363,6 @@ def card() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     return out[torch.cuda.current_device()] if out else "unknown"
-
-
-def canonical_params_np(seed: int, config: deepsdf.DecoderConfig | None = None) -> dict:
-    """He-normal (in, out) weights and zero biases, as the JAX pytree, of
-    the canonical decoder or of `config`'s layout."""
-    rng = np.random.default_rng(seed)
-    dims = (config or deepsdf.DecoderConfig()).layer_dims()
-    return {
-        "w": [(rng.normal(size=(i, o)) * np.sqrt(2.0 / i)).astype(np.float32) for i, o in dims],
-        "b": [np.zeros((o,), np.float32) for _, o in dims],
-    }
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -608,20 +619,9 @@ def phase_slice(tmp: str) -> int:
 
 
 def bench_gn_inputs():
-    """bench.py::bench_gn's inputs (B=8, P=256, R=512), seeded with numpy."""
-    B, P, R = 8, 256, 512
-    rng = np.random.default_rng(0)
-    t = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
-    t[:, :3, :3] *= 2.0
-    t[:, 2, 3] = 8.0
-    dirs = rng.normal(size=(B, P, 3))
-    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-    pts = (dirs * 1.0 + np.array([0, 0, 8.0])).astype(np.float32)
-    rays = rng.normal(0, 0.05, (B, R, 3)).astype(np.float32) + np.array([0, 0, 1.0], np.float32)
-    args = [t, pts, np.ones((B, P), np.float32), rays, np.ones((B, R), np.float32),
-            np.full((B, R), 8.0, np.float32), np.ones((B, R), np.float32),
-            np.zeros((B, 64), np.float32)]
-    return B, [torch.from_numpy(a).to(DEV) for a in args]
+    """bench.py::bench_gn's batch and inputs (B=8, P=256, R=512) on the
+    card, seeded with numpy (`apps.bench.bench_gn_inputs`)."""
+    return bench.GN_BATCH, bench.bench_gn_inputs(DEV)
 
 
 def phase_gn(name: str) -> dict:
@@ -879,8 +879,8 @@ LEGACY_FRAMES = 20
 def phase_slam_accuracy(name: str) -> dict:
     """8a: the port's benchmark_slam (stereo arm, `--workload legacy`) at KITTI
     intrinsics, 376x1241, 2000 features, 8 levels, 20 frames into the
-    30-degree turn: joint BA, pipelined tracking, async BA; then the
-    points-only BA arm (--ba_no_objects) as the A/B."""
+    30-degree turn: joint BA, pipelined tracking, async BA. (The joint vs
+    points-only A/B runs at the full workload in phase 15.)"""
     fast_score.fast_score_maps.launches = 0
     decoder_fused.sdf_and_input_grad.launches = 0
     rec = benchmark_slam.main(["--frames", str(LEGACY_FRAMES), "--workload", "legacy"])
@@ -902,11 +902,7 @@ def phase_slam_accuracy(name: str) -> dict:
     check(any(b["edge_inliers"] >= 1 for b in rec["ba_solves"]),
           "8a: no applied local BA solve with a camera-object edge inlier")
     check(k2 > 0 and k1 == 0, f"8a: K2 launched {k2} times, K1 {k1}")
-    ab = benchmark_slam.main(["--frames", str(LEGACY_FRAMES), "--workload", "legacy", "--ba_no_objects"])
-    print(f"[8a] A/B: ATE joint BA {rec['ate_rmse_cm']:.4f} cm vs points-only {ab['ate_rmse_cm']:.4f} cm; "
-          f"static object error {rec['obj_center_err_cm']} vs {ab['obj_center_err_cm']} cm; "
-          f"{ab['lost_frames']} lost points-only")
-    return {"joint": rec, "points_only": ab}
+    return rec
 
 
 def kitti_detections(poses):
@@ -1171,8 +1167,7 @@ class SphereScene:
         return np.array([[xs.min(), ys.min(), xs.max() + 1, ys.max() + 1]], np.float32), hit[None]
 
 
-MONO_FRAMES = 40
-PACED_FRAMES = 20     # the paced run only measures a drop rate
+MONO_FRAMES = 40             # 9d's sequence (its first 16 frames)
 SPHERE_STEP = 0.15
 SPHERE_FRAMES = 26
 FREIBURG_CONFIG = "configs/freiburg_001.json"
@@ -1226,20 +1221,41 @@ def phase_mono_fast(name: str) -> dict:
 
 def phase_mono_tracking(name: str) -> dict:
     """9a: the mono arm of benchmark_slam at Freiburg's camera (960x540, fx
-    930.2, 4000 features, 8 levels), pipelined then not: two-view
+    930.2, 4000 features, 8 levels): the bench entry's `mono_freiburg` arm
+    (30 frames, pipelined), then the same 30 frames not pipelined: two-view
     initialization within the first 10 frames, 0 frames lost after it,
-    Sim(3)-aligned ATE < 3% of travel, K2 once per extracted frame; then one
-    --paced run's drop rate at 25 fps."""
-    out = {"launches": 0}
-    base = ["--mono", "--mono_profile", "freiburg", "--frames", str(MONO_FRAMES)]
-    for pipelined in (True, False):
-        form = "pipelined" if pipelined else "non-pipelined"
+    Sim(3)-aligned ATE < 3% of travel, K2 once per extracted frame; then the
+    entry's `paced` arm (30 frames at 25 fps, stale ones dropped): its drop
+    rate, K2 once per extracted frame."""
+    out = {"launches": 0, "k2": {}, "seconds": {}}
+    # the non-pipelined run takes the entry's 30-frame sequence too: a
+    # shorter one yaws its 20 degrees within 8 frames, and the mono gauge
+    # drifts past 3% of travel on it
+    runs = (("pipelined", bench.mono_freiburg),
+            ("non-pipelined", lambda dev: bench.slam(
+                ["--frames", str(bench.MONO_FRAMES), "--mono", "--mono_profile", "freiburg", "--no_pipeline"], dev)),
+            ("paced", bench.paced))
+    for form, run in runs:
         # the main path: counts from 0 just before, read just after
         fast_score.fast_score_maps.launches = 0
         decoder_fused.sdf_and_input_grad.launches = 0
-        rec = benchmark_slam.main(base + ([] if pipelined else ["--no_pipeline"]))
+        t0 = time.perf_counter()
+        rec = run(DEV)
+        out["seconds"][form] = time.perf_counter() - t0
         k2, k1 = fast_score.fast_score_maps.launches, decoder_fused.sdf_and_input_grad.launches
         out["launches"] += k2
+        out["k2"][form] = k2
+        out[form] = rec
+        check(k2 == rec["frames_tracked"] + rec["n_redone"],
+              f"9a {form}: K2 launched {k2} times, expected {rec['frames_tracked']} + {rec['n_redone']}")
+        check(k1 == 0, f"9a {form}: K1 ran on the mono tracking path")
+        if form == "paced":
+            print(f"[9a] mono pipelined, paced at 25 fps: drop rate {rec['drop_rate']:.4f} "
+                  f"({rec['frames_tracked']} frames tracked of {rec['frames']}), {rec['value']:.3f} fps mean on "
+                  f"the frames it took, {rec['lost_after_init']} lost after initialization; K2 launches {k2} "
+                  f"on {name}")
+            check(0.0 <= rec["drop_rate"] <= 1.0, f"9a paced: drop rate {rec['drop_rate']}")
+            continue
         print(f"[9a] mono {form}, {rec['frames']} frames at {rec['width']}x{rec['height']}: initialized at "
               f"frame {rec['init_frame']}, {rec['lost_after_init']} lost after it, ATE (Sim(3)-aligned) "
               f"{rec['ate_rmse_cm']} cm over {rec['travel_m']:.2f} m ({rec['ate_frac_of_travel']} of travel); "
@@ -1253,15 +1269,6 @@ def phase_mono_tracking(name: str) -> dict:
         check(rec["lost_after_init"] == 0, f"9a {form}: {rec['lost_after_init']} frames lost after initialization")
         check(rec["ate_frac_of_travel"] is not None and rec["ate_frac_of_travel"] < 0.03,
               f"9a {form}: ATE {rec['ate_rmse_cm']} cm >= 3% of {rec['travel_m']} m")
-        check(k2 == rec["frames_tracked"] + rec["n_redone"],
-              f"9a {form}: K2 launched {k2} times, expected {rec['frames_tracked']} + {rec['n_redone']}")
-        check(k1 == 0, f"9a {form}: K1 ran on the mono tracking path")
-        out[form] = rec
-    paced = benchmark_slam.main(["--mono", "--mono_profile", "freiburg", "--frames", str(PACED_FRAMES), "--paced"])
-    print(f"[9a] mono pipelined, paced at 25 fps: drop rate {paced['drop_rate']:.4f} "
-          f"({paced['frames_tracked']} frames tracked of {paced['frames']}), {paced['value']:.3f} fps mean on "
-          f"the frames it took, {paced['lost_after_init']} lost after initialization on {name}")
-    out["paced"] = paced
     return out
 
 
@@ -1272,7 +1279,7 @@ def phase_mono_profile(name: str) -> dict:
     against LOCAL_POINT_CAP points), timed and with their peak memory; one
     chained mono program under set_sync_debug_mode("error")."""
     world, cam, poses = benchmark_slam.mono_sequence("freiburg", 20)
-    imgs = [np.clip(world.render_pose(T), 0, 255).astype(np.uint8) for T in poses[:20]]
+    imgs = render_poses(lambda T: np.clip(world.render_pose(T), 0, 255).astype(np.uint8), poses[:20])
     system = benchmark_slam.mono_system(cam, True, DEV)
     for k in range(12):
         system.track_mono(imgs[k], 0.1 * k)
@@ -1518,8 +1525,8 @@ def phase_rgbd(name: str) -> int:
     n = 16
     world, cam, poses = benchmark_slam.mono_sequence("freiburg", MONO_FRAMES)
     w, h, fx, cx, cy = cam
-    frames = [(np.clip(world.render_pose(T), 0, 255).astype(np.uint8), world.depth_map_pose(T))
-              for T in poses[:n]]
+    frames = render_poses(lambda T: (np.clip(world.render_pose(T), 0, 255).astype(np.uint8),
+                                     world.depth_map_pose(T)), poses[:n])
     travel = float(np.linalg.norm(np.diff(poses[:n, :3, 3], axis=0), axis=1).sum())
     launches = 0
     for pipelined in (False, True):
@@ -1590,8 +1597,9 @@ def vocabulary_from(imgs, params, branching: int, levels: int) -> Vocabulary:
 
 
 def phase_long_loop(name: str) -> dict:
-    """10a: benchmark_slam --long_loop (201 keyframes, one loop, a vocabulary
-    trained in-process) on the card; the essential-graph and global-BA
+    """10a: the bench entry's `long_loop` arm (benchmark_slam --frames 100
+    --long_loop: 201 keyframes, one loop, a vocabulary trained in-process) on
+    the card; the essential-graph and global-BA
     solves timed with CUDA events around their launches; then one
     `_dispatch_global_ba` and one `optimize_pose_graph` at the run's shapes
     under set_sync_debug_mode("error")."""
@@ -1613,7 +1621,9 @@ def phase_long_loop(name: str) -> dict:
     with mock.patch.object(loop_closing.LoopCloser, "_dispatch_global_ba", capture_dispatch), \
             mock.patch.object(pose_graph, "optimize_pose_graph", around_launches(spans["pose_graph"], capture_solve)), \
             mock.patch.object(ba, "bundle_adjust", around_launches(spans["gba"], ba.bundle_adjust)):
-        rec = benchmark_slam.main(["--long_loop"])
+        t0 = time.perf_counter()
+        rec = bench.long_loop(DEV)
+        seconds = time.perf_counter() - t0
     torch.cuda.synchronize()
     k1, k2 = decoder_fused.sdf_and_input_grad.launches, fast_score.fast_score_maps.launches
     pg_ms, gba_ms = events_ms(spans["pose_graph"]), events_ms(spans["gba"])
@@ -1658,7 +1668,7 @@ def phase_long_loop(name: str) -> dict:
     print(f"[10a] profile of one optimize_pose_graph: wall {wall:.3f} ms under the profiler, device busy "
           f"{busy:.3f} ms ({n_kernels} kernel launches), idle share {1 - busy / wall:.3f}")
     print(events.table(sort_by=key, row_limit=12))
-    return {"record": rec, "pose_graph_ms": pg_ms, "gba_ms": gba_ms, "pose_graph_busy_ms": busy}
+    return {"record": rec, "pose_graph_ms": pg_ms, "gba_ms": gba_ms, "pose_graph_busy_ms": busy, "seconds": seconds}
 
 
 def phase_relocalization(system_cfg, images, poses, params, name: str) -> dict:
@@ -2266,13 +2276,13 @@ def phase_decoder_fit(tmp: str, name: str) -> dict:
 
 
 JAX_TPU_FULL_MARKS = {"ate_cm": 1.4, "chamfer_cm": 5.47}     # BENCH_r04, another machine: accuracy marks
-FULL_FRAMES = 56                # bench.py's full workload (bench.py:149-157); 18 warm-up frames
+FULL_FRAMES = bench.FULL_FRAMES         # bench.py's full workload (bench.py:149-157); 18 warm-up frames
 FULL_PROFILE_FRAMES = range(10, 15)     # inside the warm-up, so outside the steady-state record
 FULL_CHAMFER_CM = 15.0
 
 
 def phase_full_arm(name: str) -> dict:
-    """12b: benchmark_slam.main(["--frames", "56"]), the full workload: both
+    """12b: the bench entry's `full` arm (benchmark_slam --frames 56), the full workload: both
     detectors at full width on every keyframe inside the measured loop, the
     canonical DeepSDF fitted to spheres at startup (600 steps) so the object
     GN runs K1 on trained weights, live and 64^3 refined chamfer. Frames
@@ -2310,7 +2320,7 @@ def phase_full_arm(name: str) -> dict:
             mock.patch.object(maskrcnn.Detector2D, "dispatch", marked("maskrcnn", maskrcnn.Detector2D.dispatch)), \
             mock.patch.object(pointpillars.Detector3D, "dispatch",
                               marked("pointpillars", pointpillars.Detector3D.dispatch)):
-        rec = benchmark_slam.main(["--frames", str(FULL_FRAMES)])
+        rec = bench.full(DEV)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1, k2 = decoder_fused.sdf_and_input_grad.launches, fast_score.fast_score_maps.launches
@@ -2361,7 +2371,7 @@ def phase_full_arm(name: str) -> dict:
           f"{k1_ms:.3f} ms ({k1_ms / max(busy, 1e-9):.3f} of the busy time); device time under the detectors' "
           f"dispatch calls: Mask R-CNN {shares['maskrcnn']} ms, PointPillars {shares['pointpillars']} ms")
     print(events.table(sort_by=key, row_limit=15))
-    return {"record": {k: v for k, v in rec.items() if k not in ("ba_solves", "stage_ms")},
+    return {"bench_record": rec, "record": {k: v for k, v in rec.items() if k not in ("ba_solves", "stage_ms")},
             "stage_ms": rec["stage_ms"], "k1_launches": k1, "k2_launches": k2, "wall_s": wall,
             "profile": {"wall_ms": prof["wall_ms"], "busy_ms": busy, "k1_ms": k1_ms, **{f"{k}_ms": v for k, v in
                                                                                     shares.items()}}}
@@ -3027,6 +3037,92 @@ def phase_decoder_contract(gn5: dict, fitted, name: str) -> dict:
     return {"precision_ab": ab, "other_decoders": other, "render_eval_fraction": fraction}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the bench entry (`python -m dspslam_tpu_torch.apps.bench`)
+
+# K1 launches of the entry's gn arm: a warm-up and GN_REPS timed calls, two
+# per GN iteration
+BENCH_GN_K1 = (bench.GN_REPS + 1) * 2 * bench.GN_ITERATIONS
+
+
+def phase_bench(prior: dict, prior_seconds: dict, name: str) -> dict:
+    """15: `apps.bench.main([])` on the card, with the records of the arms
+    that phases 12b (full), 9a (mono_freiburg, paced) and 10a (long_loop) ran
+    through the entry's functions reused, so no benchmark_slam argv runs
+    twice; the entry runs ab, mono_redwood and gn itself, each with K1 and
+    K2 counted from 0. Its line: every arm's keys present and finite, no
+    `_error` key, fps > 0, 0 lost frames, the ATE of both A/B arms < 3% of
+    travel, the long loop's ATE after <= 10% of before, the paced drop rate
+    in [0, 1]; K1 launched 11 x 20 times in the gn arm and as the object GN
+    calls need in ab, K2 once per extracted frame in ab and mono_redwood."""
+    counted = {}
+
+    def counting(arm, run):
+        def wrapped(device):
+            fast_score.fast_score_maps.launches = 0
+            decoder_fused.sdf_and_input_grad.launches = 0
+            rec = run(device)
+            counted[arm] = {"record": rec, "k1": decoder_fused.sdf_and_input_grad.launches,
+                            "k2": fast_score.fast_score_maps.launches}
+            return rec
+        return wrapped
+
+    arms = {arm: (counting(arm, run), keys) for arm, (run, keys) in bench.ARMS.items()}
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with mock.patch.dict(bench.ARMS, arms), contextlib.redirect_stdout(buf):
+        code = bench.main([], prior=prior)
+    wall = time.perf_counter() - t0
+    details_text, line_text = buf.getvalue().splitlines()[-2:]
+    details, line = json.loads(details_text), json.loads(line_text)
+    print(f"[15] python -m dspslam_tpu_torch.apps.bench (arms {sorted(prior)} from phases 12b, 9a and 10a) in "
+          f"{wall:.1f} s, exit code {code}, on {name}:")
+    print(details_text)
+    print(line_text)
+
+    records = {**prior, **{arm: c["record"] for arm, c in counted.items()}}
+    errors = {k: v for k, v in line.items() if k.endswith("_error")}
+    check(code == 0 and not errors and set(counted) == set(bench.ARMS) - set(prior),
+          f"15: exit code {code}, errors {errors}, arms run {sorted(counted)}")
+    for arm, (_, keys) in bench.ARMS.items():
+        for key, value in keys(records).items():
+            got = line.get(key, details.get(key))
+            check(key in line or key in details, f"15: {arm}'s key {key} is missing from the line")
+            if isinstance(value, (str, dict)):
+                continue
+            check(got is not None and bool(np.isfinite(got)), f"15: {arm}'s {key} is {got}")
+    check(min(line["value"], line["mono_fps_redwood"], line["mono_fps_freiburg"]) > 0, "15: an fps is not > 0")
+    check(line["lost_frames"] == line["lost_frames_points_only"] == line["mono_redwood_lost_after_init"]
+          == line["mono_freiburg_lost_after_init"] == 0, "15: lost frames")
+    for ate, travel in (("ate_joint_cm", "travel_m"), ("ate_points_only_cm", "travel_m_points_only")):
+        check(line[ate] / 100 < 0.03 * line[travel], f"15: {ate} {line[ate]} cm >= 3% of {line[travel]} m")
+    check(line["ate_after_loop_cm"] <= 0.1 * line["ate_before_loop_cm"] and line["loops_closed"] == 1,
+          f"15: long loop {line['ate_before_loop_cm']} -> {line['ate_after_loop_cm']} cm")
+    check(0.0 <= line["mono_freiburg_paced_drop_rate"] <= 1.0, f"15: drop rate {line['mono_freiburg_paced_drop_rate']}")
+
+    ab, redwood, gn_arm = counted["ab"], counted["mono_redwood"], counted["gn"]
+    check(gn_arm["k1"] == BENCH_GN_K1 and gn_arm["k2"] == 0,
+          f"15 gn: K1 launched {gn_arm['k1']} times (expected {BENCH_GN_K1}), K2 {gn_arm['k2']}")
+    rec = ab["record"]
+    check(ab["k1"] == rec["expected_k1_launches"] > 0 and ab["k2"] == rec["frames"] + rec["n_redone"],
+          f"15 ab: K1 {ab['k1']} (expected {rec['expected_k1_launches']}), K2 {ab['k2']} (expected "
+          f"{rec['frames']} + {rec['n_redone']})")
+    rec = redwood["record"]
+    check(redwood["k1"] == 0 and redwood["k2"] == rec["frames_tracked"] + rec["n_redone"],
+          f"15 mono_redwood: K1 {redwood['k1']}, K2 {redwood['k2']} (expected {rec['frames_tracked']} + "
+          f"{rec['n_redone']})")
+    launches = {arm: {"k1": c["k1"], "k2": c["k2"]} for arm, c in counted.items()}
+    entry_s = sum(details["arm_seconds"].values()) + sum(prior_seconds.values())
+    print(f"[15] launches by arm {launches}; A/B ATE joint {line['ate_joint_cm']:.4f} cm vs points-only "
+          f"{line['ate_points_only_cm']:.4f} cm, object error {line['obj_err_joint_cm']} vs "
+          f"{line['obj_err_points_only_cm']} cm; Redwood {line['mono_fps_redwood']:.4f} fps mean "
+          f"({line['mono_fps_redwood_median']:.4f} median); gn {line['gn_recon_ms_per_object']:.3f} ms per object "
+          f"by wall clock (phase 5's CUDA events beside it); the whole entry's arms {entry_s:.1f} s "
+          f"({details['arm_seconds']} here, {prior_seconds} in their phases) on {name}")
+    return {"line": line, "arm_seconds": {**prior_seconds, **details["arm_seconds"]}, "launches": launches,
+            "entry_seconds": entry_s, "wall_s": wall}
+
+
 def main():
     # cuBLAS is deterministic (phase 12c) only with a fixed workspace
     # configuration, read when the process makes its first handle
@@ -3136,6 +3232,13 @@ def main():
         print(f"[14] slice 9 phases: {slice9['seconds']:.1f} s")
         seconds("14")
 
+        prior = {"full": full.pop("bench_record"), "mono_freiburg": mono["pipelined"], "paced": mono["paced"],
+                 "long_loop": loop["record"]}
+        prior_s = {"full": full["wall_s"], "mono_freiburg": mono["seconds"]["pipelined"],
+                   "paced": mono["seconds"]["paced"], "long_loop": loop["seconds"]}
+        slice10 = phase_bench(prior, prior_s, name)
+        seconds("15")
+
     slice5 = {
         "long_loop": {k: loop["record"][k] for k in ("ate_before_loop_cm", "ate_after_loop_cm",
                                                       "loops_closed", "loop_kfs", "loop_wall_s")},
@@ -3154,6 +3257,7 @@ def main():
                                  "seconds": t12}}))
     print(json.dumps({"slice8": slice8}))
     print(json.dumps({"slice9": slice9}))
+    print(json.dumps({"slice10": {"card": name, **slice10}}))
     print(name)
     kernels = [{
         "name": "decoder_fused", "route": "cuda", "source": SRC, "replaces": REPLACES,
@@ -3181,6 +3285,8 @@ def main():
                                       "bf16": slice9["other_decoders"]["bf16_k1_launches"]},
         "gn_ms_per_object_by_precision": slice9["precision_ab"]["gn_ms_per_object"],
         "generic_path_ms": slice9["precision_ab"]["generic_ms"],
+        "bench_launches": {"full": full["k1_launches"], "ab": slice10["launches"]["ab"]["k1"],
+                           "gn": slice10["launches"]["gn"]["k1"]},
     }, {
         "name": "fast_score", "route": "cuda", "source": K2_SRC, "replaces": K2_REPLACES,
         "launches": trk["launches"], "max_abs_err": k2["max_abs_err"],
@@ -3204,6 +3310,9 @@ def main():
                           "checkpoint": ckpt["k2_launches"]},
         "detector_slam_launches": online["k2_launches"],
         "full_arm_launches": full["k2_launches"], "vocabulary_launches": vocab["k2_launches"],
+        "bench_launches": {"full": full["k2_launches"], "ab": slice10["launches"]["ab"]["k2"],
+                           "mono_redwood": slice10["launches"]["mono_redwood"]["k2"],
+                           "mono_freiburg": mono["k2"]["pipelined"], "paced": mono["k2"]["paced"]},
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

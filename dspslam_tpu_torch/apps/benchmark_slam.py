@@ -69,7 +69,7 @@ import numpy as np
 import torch
 
 from ..datasets.street_loop import StreetLoopWorld
-from ..datasets.synthetic import LayeredWorld, forward_turn_trajectory, strafe_yaw_trajectory
+from ..datasets.synthetic import LayeredWorld, forward_turn_trajectory, render_poses, strafe_yaw_trajectory
 from ..detect.maskrcnn import Detector2D
 from ..detect.pointpillars import Detector3D
 from ..frontend import orb
@@ -303,9 +303,11 @@ def main(argv=None):
     p.add_argument("--mlp_steps", type=int, default=600, help="startup decoder-fit steps (full workload)")
     p.add_argument("--no_objects", action="store_true", help="no object pipeline and no detections")
     p.add_argument("--sync_ba", action="store_true", help="apply local BA at each keyframe")
+    p.add_argument("--async_kf", action="store_true", default=True,
+                   help="spread each keyframe's work over the following frames (the default; --sync_kf "
+                        "turns it off)")
     p.add_argument("--sync_kf", dest="async_kf", action="store_false",
-                   help="process each keyframe whole at the frame that created it (by default its work is "
-                        "spread over the following frames)")
+                   help="process each keyframe whole at the frame that created it")
     p.add_argument("--ba_no_objects", action="store_true",
                    help="points-only local BA (object poses frozen at their GN measurements)")
     p.add_argument("--no_pipeline", action="store_true", help="non-pipelined tracking")
@@ -344,8 +346,8 @@ def main(argv=None):
     rng = np.random.default_rng(1)
     # the sensor data the reference reads from disk (dsp_slam.cc:62-75)
     t0 = time.perf_counter()
-    host_imgs = [(np.clip(world.render_pose(T), 0, 255).astype(np.uint8),
-                  np.clip(world.render_pose(T, BASELINE_M), 0, 255).astype(np.uint8)) for T in traj]
+    host_imgs = render_poses(lambda T: (np.clip(world.render_pose(T), 0, 255).astype(np.uint8),
+                                        np.clip(world.render_pose(T, BASELINE_M), 0, 255).astype(np.uint8)), traj)
     scans = [make_velodyne_scan(T, world, np.vstack([spheres_w, dyn_traj[k][None]]), rng)
              for k, T in enumerate(traj)] if full else None
     print(f"sensor pregen: {len(traj)} frames" + (f" + scans ({len(scans[0])} points)" if full else "")
@@ -580,7 +582,7 @@ def main_mono(args, device):
     w, h, fx = cam[:3]
     system = mono_system(cam, not args.no_pipeline, device)
     t0 = time.perf_counter()
-    host_imgs = [np.clip(world.render_pose(T), 0, 255).astype(np.uint8) for T in traj]
+    host_imgs = render_poses(lambda T: np.clip(world.render_pose(T), 0, 255).astype(np.uint8), traj)
     print(f"sensor pregen: {len(traj)} frames at {w}x{h}, {time.perf_counter() - t0:.1f} s")
     timer = StageTimer()
     system.attach_telemetry(timer)

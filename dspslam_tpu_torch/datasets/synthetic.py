@@ -26,6 +26,8 @@ Design notes (born out of tracking-stability forensics):
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 
 
@@ -405,13 +407,20 @@ def kitti_turn_sequence(camera, n_frames: int = 30, seed: int = 12):
     return world, poses, camera.baseline_fx / camera.fx
 
 
+# the renderer's array work releases the GIL, so poses render in threads
+RENDER_THREADS = 4
+
+
+def render_poses(fn, poses) -> list:
+    """[fn(T) for T in poses], computed over RENDER_THREADS threads."""
+    with ThreadPoolExecutor(RENDER_THREADS) as pool:
+        return list(pool.map(fn, poses))
+
+
 def render_stereo_u8(world, poses, baseline):
     """uint8 left / right renders of every pose, as a camera delivers them."""
-    return [
-        (np.round(world.render_pose(T)).astype(np.uint8),
-         np.round(world.render_pose(T, baseline)).astype(np.uint8))
-        for T in poses
-    ]
+    return render_poses(lambda T: (np.round(world.render_pose(T)).astype(np.uint8),
+                                   np.round(world.render_pose(T, baseline)).astype(np.uint8)), poses)
 
 
 def blob_images(b: int, h: int, w: int, seed: int) -> np.ndarray:

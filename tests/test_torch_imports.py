@@ -56,6 +56,7 @@ def test_port_has_sources():
         "train_vocabulary.py", "frame_drawer.py", "renderer.py", "live_viewer.py", "visualize_map.py",
     } <= names
     assert {"mesh_utils.py", "tp_decoder.py", "dryrun.py"} <= names
+    assert "bench.py" in names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
