@@ -304,7 +304,7 @@ from dspslam_tpu_torch.slam import frame_step, keyframe_step, state_io, tracking
 from dspslam_tpu_torch.slam import map as slam_map_mod  # noqa: E402
 from dspslam_tpu_torch.slam.system import SLAMSystem  # noqa: E402
 from dspslam_tpu_torch.utils.evaluation import ate_rmse  # noqa: E402
-from dspslam_tpu_torch.utils.timing import StageTimer  # noqa: E402
+from dspslam_tpu_torch.utils.timing import StageTimer, attach as attach_sink, totals as counter_totals  # noqa: E402
 from dspslam_tpu_torch.utils.io import read_mesh_ply  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -350,6 +350,18 @@ TOL_ITER1 = 1e-3
 # must then stay as close to a float64 run of the plain path as the f32
 # plain path is, within this factor and floor.
 TOL_ITER10_FACTOR, TOL_ITER10_FLOOR = 2.0, 1e-3
+
+
+def launch_mark() -> dict:
+    """The port's process-wide counter totals now (`launches_since`)."""
+    return counter_totals()
+
+
+def launches_since(mark: dict) -> tuple[int, int]:
+    """(K1, K2) launches since `mark`: the kernels' launchers count each
+    launch (`utils.timing.count`)."""
+    now = counter_totals()
+    return tuple(now.get(k, 0) - mark.get(k, 0) for k in ("k1_launches", "k2_launches"))
 
 
 def check(ok: bool, msg: str):
@@ -591,9 +603,9 @@ def phase_slice(tmp: str) -> int:
     cfg_path = os.path.join(tmp, "config.json")
     SystemConfig(deepsdf_dir=exp).to_json(cfg_path)
     out_dir = os.path.join(tmp, "out")
-    decoder_fused.sdf_and_input_grad.launches = 0
+    mark = launch_mark()
     summary = reconstruct_frame.main(["--synthetic", "--config", cfg_path, "--output_dir", out_dir])
-    launches = decoder_fused.sdf_and_input_grad.launches
+    launches = launches_since(mark)[0]
     print(f"[4] reconstruct_frame (full-width DeepSDF, 10 GN iterations): K1 launches {launches}")
     check(launches == 2 * 10, f"K1 launched {launches} times in the slice, expected 20")
     check(len(summary) == 2, f"expected 2 detections, got {len(summary)}")
@@ -700,10 +712,10 @@ def phase_fast(frame0, params, so: str, name: str) -> dict:
           f"({shapes[0][0]}x{shapes[0][1]} ... {shapes[-2][0]}x{shapes[-2][1]}, 49x130): exact")
 
     levels = k2_levels(*frame0, params)
-    before = fast_score.fast_score_maps.launches
+    mark = launch_mark()
     outs = fast_score.fast_score_maps(levels, t_lo, t_hi, orb.BOOST)
     torch.cuda.synchronize()
-    check(fast_score.fast_score_maps.launches == before + 1, "K2 took more than one launch for a frame")
+    check(launches_since(mark)[1] == 1, "K2 took more than one launch for a frame")
     refs = fast_score.fast_score_maps_plain(levels, t_lo, t_hi, orb.BOOST)
     for x, out, ref in zip(levels, outs, refs):
         max_err = max(max_err, float((out - ref).abs().max()))
@@ -793,12 +805,11 @@ def phase_tracking(system_cfg, images, poses, name: str) -> dict:
     out = {"launches": 0}
     for pipelined in (False, True):
         form = "pipelined" if pipelined else "non-pipelined"
-        # the main path: counts from 0 just before, read just after
-        fast_score.fast_score_maps.launches = 0
-        decoder_fused.sdf_and_input_grad.launches = 0
+        # the main path: launches counted from just before to just after
+        mark = launch_mark()
         tr, walls, steady = run_tracker(system_cfg, images, pipelined)
-        launches = fast_score.fast_score_maps.launches
-        check(decoder_fused.sdf_and_input_grad.launches == 0, "K1 ran on the tracking path")
+        k1, launches = launches_since(mark)
+        check(k1 == 0, "K1 ran on the tracking path")
         out["launches"] += launches
         lost = sum(1 for _, _, l in tr.trajectory if l)
         ate = ate_rmse(trajectory_wc(tr), poses)["rmse"]
@@ -881,10 +892,9 @@ def phase_slam_accuracy(name: str) -> dict:
     intrinsics, 376x1241, 2000 features, 8 levels, 20 frames into the
     30-degree turn: joint BA, pipelined tracking, async BA. (The joint vs
     points-only A/B runs at the full workload in phase 15.)"""
-    fast_score.fast_score_maps.launches = 0
-    decoder_fused.sdf_and_input_grad.launches = 0
+    mark = launch_mark()
     rec = benchmark_slam.main(["--frames", str(LEGACY_FRAMES), "--workload", "legacy"])
-    k2, k1 = fast_score.fast_score_maps.launches, decoder_fused.sdf_and_input_grad.launches
+    k1, k2 = launches_since(mark)
     limit = 0.03 * rec["travel_m"]
     print(f"[8a] benchmark_slam, {LEGACY_FRAMES} frames (joint BA): {rec['lost_frames']} lost, ATE "
           f"{rec['ate_rmse_cm']:.4f} cm over {rec['travel_m']:.2f} m; {rec['n_keyframes']} keyframes, "
@@ -921,7 +931,7 @@ def phase_slam_k1(system_cfg, exp_dir: str, images, poses, name: str) -> dict:
     system = dsp_slam.build_system(cfg, None, pipelined=True)
     system.detection_source = kitti_detections(poses)
     timer = StageTimer()
-    system.attach_telemetry(timer)
+    previous_sink = system.attach_telemetry(timer)
     pipeline = system.local_mapper.object_pipeline
     # one keyframe's drain under torch.profiler: the second one that runs
     # object GN work
@@ -941,8 +951,7 @@ def phase_slam_k1(system_cfg, exp_dir: str, images, poses, name: str) -> dict:
         profiled["events"] = prof.key_averages()
 
     system._drain_keyframes = profiled_drain
-    fast_score.fast_score_maps.launches = 0
-    decoder_fused.sdf_and_input_grad.launches = 0
+    mark = launch_mark()
     kf_frames = []
     for k, (left, right) in enumerate(images):
         n_kf = len(system.map.keyframes)
@@ -951,7 +960,8 @@ def phase_slam_k1(system_cfg, exp_dir: str, images, poses, name: str) -> dict:
             kf_frames.append(k)
     system.flush()
     torch.cuda.synchronize()
-    k1, k2 = decoder_fused.sdf_and_input_grad.launches, fast_score.fast_score_maps.launches
+    attach_sink(previous_sink)
+    k1, k2 = launches_since(mark)
     expected = pipeline.expected_k1_launches()
     tr = system.tracker
     n = len(images)
@@ -993,7 +1003,8 @@ def phase_slam_k1(system_cfg, exp_dir: str, images, poses, name: str) -> dict:
     print(f"[8b] profile of one keyframe drain: device busy {busy:.3f} ms, K1 {k1_ms:.3f} ms "
           f"({k1_ms / max(busy, 1e-9):.3f} of it)")
     print(events.table(sort_by=key, row_limit=20))
-    return {"k1_launches": k1, "k2_launches": k2, "system": system, "k1_share": k1_ms / max(busy, 1e-9)}
+    return {"k1_launches": k1, "k2_launches": k2, "system": system, "timer": timer,
+            "k1_share": k1_ms / max(busy, 1e-9)}
 
 
 def mini_kitti_config(tmp: str) -> str:
@@ -1191,10 +1202,10 @@ def phase_mono_fast(name: str) -> dict:
     img = np.clip(world.render_pose(poses[0]), 0, 255).astype(np.uint8)
     levels = mono_level_maps(img, params)
     t_lo, t_hi = float(params.min_threshold), float(params.fast_threshold)
-    before = fast_score.fast_score_maps.launches
+    mark = launch_mark()
     outs = fast_score.fast_score_maps(levels, t_lo, t_hi, orb.BOOST)
     torch.cuda.synchronize()
-    check(fast_score.fast_score_maps.launches == before + 1, "K2 took more than one launch for a mono frame")
+    check(launches_since(mark)[1] == 1, "K2 took more than one launch for a mono frame")
     refs = fast_score.fast_score_maps_plain(levels, t_lo, t_hi, orb.BOOST)
     max_err = 0.0
     for x, out, ref in zip(levels, outs, refs):
@@ -1236,13 +1247,12 @@ def phase_mono_tracking(name: str) -> dict:
                 ["--frames", str(bench.MONO_FRAMES), "--mono", "--mono_profile", "freiburg", "--no_pipeline"], dev)),
             ("paced", bench.paced))
     for form, run in runs:
-        # the main path: counts from 0 just before, read just after
-        fast_score.fast_score_maps.launches = 0
-        decoder_fused.sdf_and_input_grad.launches = 0
+        # the main path: launches counted from just before to just after
+        mark = launch_mark()
         t0 = time.perf_counter()
         rec = run(DEV)
         out["seconds"][form] = time.perf_counter() - t0
-        k2, k1 = fast_score.fast_score_maps.launches, decoder_fused.sdf_and_input_grad.launches
+        k1, k2 = launches_since(mark)
         out["launches"] += k2
         out["k2"][form] = k2
         out[form] = rec
@@ -1429,10 +1439,9 @@ def phase_mono_objects(name: str) -> dict:
     def deepsdf_factory(slam_map):
         return MonoObjectPipeline(slam_map, dec, opt, voxels_dim=32, warmup_kfs=5, recon_every=2)
 
-    fast_score.fast_score_maps.launches = 0
-    decoder_fused.sdf_and_input_grad.launches = 0
+    mark = launch_mark()
     system, _, events = sphere_run(scene, deepsdf_factory, profile_recon=True)
-    k1, k2 = decoder_fused.sdf_and_input_grad.launches, fast_score.fast_score_maps.launches
+    k1, k2 = launches_since(mark)
     pipeline = system.local_mapper.object_pipeline
     expected = pipeline.expected_k1_launches()
     objs = [o for o in system.map.objects.values() if not o.bad]
@@ -1536,14 +1545,14 @@ def phase_rgbd(name: str) -> int:
                                                min_init_features=400, max_frames_between_kf=5,
                                                search_radius_motion=25.0, pipelined=pipelined),
             orb_params=orb.ORBParams(n_features=4000, n_levels=8), device=DEV)
-        fast_score.fast_score_maps.launches = 0
+        mark = launch_mark()
         t0 = time.perf_counter()
         for k, (img, depth) in enumerate(frames):
             system.track_rgbd(img, depth, 0.1 * k)
         system.flush()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n * 1e3
-        k2 = fast_score.fast_score_maps.launches
+        k2 = launches_since(mark)[1]
         launches += k2
         tr = system.tracker
         lost = sum(1 for _, _, l in tr.trajectory if l)
@@ -1616,8 +1625,7 @@ def phase_long_loop(name: str) -> dict:
         seen["pose_graph"] = (args, kw)
         return solve(*args, **kw)
 
-    fast_score.fast_score_maps.launches = 0
-    decoder_fused.sdf_and_input_grad.launches = 0
+    mark = launch_mark()
     with mock.patch.object(loop_closing.LoopCloser, "_dispatch_global_ba", capture_dispatch), \
             mock.patch.object(pose_graph, "optimize_pose_graph", around_launches(spans["pose_graph"], capture_solve)), \
             mock.patch.object(ba, "bundle_adjust", around_launches(spans["gba"], ba.bundle_adjust)):
@@ -1625,7 +1633,7 @@ def phase_long_loop(name: str) -> dict:
         rec = bench.long_loop(DEV)
         seconds = time.perf_counter() - t0
     torch.cuda.synchronize()
-    k1, k2 = decoder_fused.sdf_and_input_grad.launches, fast_score.fast_score_maps.launches
+    k1, k2 = launches_since(mark)
     pg_ms, gba_ms = events_ms(spans["pose_graph"]), events_ms(spans["gba"])
     before, after = rec["ate_before_loop_cm"], rec["ate_after_loop_cm"]
     print(f"[10a] benchmark_slam --long_loop: {rec['loop_kfs']} keyframes, loops closed "
@@ -1682,7 +1690,7 @@ def phase_relocalization(system_cfg, images, poses, params, name: str) -> dict:
     system = dsp_slam.build_system(system_cfg, None, enable_objects=False, device=DEV, vocabulary=voc,
                                    enable_loop=False)
     blank = np.zeros_like(images[0][0])
-    fast_score.fast_score_maps.launches = 0
+    mark = launch_mark()
     t0 = time.perf_counter()
     for k, (left, right) in enumerate(images):
         if k in BLACKOUT:
@@ -1691,7 +1699,7 @@ def phase_relocalization(system_cfg, images, poses, params, name: str) -> dict:
     system.flush()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k2 = fast_score.fast_score_maps.launches
+    k2 = launches_since(mark)[1]
     tr = system.tracker
     lost = [l for _, _, l in tr.trajectory]
     n = len(images)
@@ -1724,7 +1732,7 @@ def phase_loop_slam(system_cfg, exp_dir: str, images, poses, voc, drain_8b: list
     system = dsp_slam.build_system(cfg, None, pipelined=True, vocabulary=voc)
     system.detection_source = kitti_detections(poses)
     timer = StageTimer()
-    system.attach_telemetry(timer)
+    previous_sink = system.attach_telemetry(timer)
     closer = system.loop_closer
     insert = closer.insert_keyframe
     insert_ms = []
@@ -1736,13 +1744,13 @@ def phase_loop_slam(system_cfg, exp_dir: str, images, poses, voc, drain_8b: list
         return out
 
     closer.insert_keyframe = timed_insert
-    fast_score.fast_score_maps.launches = 0
-    decoder_fused.sdf_and_input_grad.launches = 0
+    mark = launch_mark()
     for k, (left, right) in enumerate(images):
         system.track_stereo(left, right, 0.1 * k)
     system.flush()
     torch.cuda.synchronize()
-    k1, k2 = decoder_fused.sdf_and_input_grad.launches, fast_score.fast_score_maps.launches
+    attach_sink(previous_sink)
+    k1, k2 = launches_since(mark)
     expected = system.local_mapper.object_pipeline.expected_k1_launches()
     tr = system.tracker
     n = len(images)
@@ -1873,10 +1881,10 @@ def phase_checkpoint(tmp: str, name: str) -> dict:
     voc_path, state = os.path.join(tmp, "voc.npz"), os.path.join(tmp, "state.npz")
     voc.save(voc_path)
     out = os.path.join(tmp, "ckpt_map")
-    fast_score.fast_score_maps.launches = 0
+    mark = launch_mark()
     system = dsp_slam.main(["--sequence_dir", MINI_KITTI, "--config", cfg, "--map_dir", out,
                             "--vocabulary", voc_path, "--save_state", state])
-    k2 = fast_score.fast_score_maps.launches
+    k2 = launches_since(mark)[1]
     check(system.state.name == "OK" and system.loop_closer is not None, f"10e: {system.state}")
     check(k2 == seq.num_frames + system.tracker.n_redone, f"10e: K2 launched {k2} times")
     loaded = state_io.load_state(state)
@@ -2128,14 +2136,13 @@ def phase_detect_online(tmp: str, name: str) -> dict:
         seqs.append(self)
         return get(self, frame_id, image_hw)
 
-    fast_score.fast_score_maps.launches = 0
-    decoder_fused.sdf_and_input_grad.launches = 0
+    mark = launch_mark()
     t0 = time.perf_counter()
     with mock.patch.object(KITTISequence, "get_frame_detections", counted):
         system = dsp_slam.main(["--sequence_dir", MINI_KITTI, "--config", cfg_path, "--map_dir", out, "--no_loop"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k2 = decoder_fused.sdf_and_input_grad.launches, fast_score.fast_score_maps.launches
+    k1, k2 = launches_since(mark)
     tr = system.tracker
     lost = sum(1 for _, _, l in tr.trajectory if l)
     pipeline = system.local_mapper.object_pipeline
@@ -2313,8 +2320,7 @@ def phase_full_arm(name: str) -> dict:
                 return fn(self, *args)
         return run
 
-    fast_score.fast_score_maps.launches = 0
-    decoder_fused.sdf_and_input_grad.launches = 0
+    mark = launch_mark()
     t0 = time.perf_counter()
     with mock.patch.object(SLAMSystem, "track_stereo", profiled_track), \
             mock.patch.object(maskrcnn.Detector2D, "dispatch", marked("maskrcnn", maskrcnn.Detector2D.dispatch)), \
@@ -2323,7 +2329,7 @@ def phase_full_arm(name: str) -> dict:
         rec = bench.full(DEV)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k2 = decoder_fused.sdf_and_input_grad.launches, fast_score.fast_score_maps.launches
+    k1, k2 = launches_since(mark)
     limit = 0.03 * rec["travel_m"]
     disp = rec["detector_dispatches"]
     print(f"[12b] benchmark_slam --frames {FULL_FRAMES} (full workload: Mask R-CNN + PointPillars at full width "
@@ -2500,13 +2506,13 @@ def phase_vocabulary(tmp: str, images, name: str) -> dict:
     for k, (left, _) in enumerate(images[::3][:10]):
         Image.fromarray(left).save(os.path.join(img_dir, f"{k:06d}.png"))
     voc_path = os.path.join(tmp, "voc12.npz")
-    fast_score.fast_score_maps.launches = 0
+    mark = launch_mark()
     t0 = time.perf_counter()
     voc = train_vocabulary.main(["--image_dir", img_dir, "--output", voc_path, "--stride", "1", "--branching", "4",
                                  "--levels", "3"])
     torch.cuda.synchronize()
     voc_s = time.perf_counter() - t0
-    k2 = fast_score.fast_score_maps.launches
+    k2 = launches_since(mark)[1]
     t0 = time.perf_counter()
     system = dsp_slam.main(["--sequence_dir", MINI_KITTI, "--config", mini_kitti_config(tmp), "--map_dir",
                             os.path.join(tmp, "voc_map"), "--vocabulary", voc_path])
@@ -2633,9 +2639,9 @@ def phase_sharded_gn(decoder, name: str) -> dict:
     for iters in (1, 10):
         recon = gn.batched_reconstruct(decoder, gn.GNConfig(code_len=64, num_iterations=iters))
         ref = recon(*args)
-        decoder_fused.sdf_and_input_grad.launches = 0
+        mark = launch_mark()
         got = mesh_utils.sharded_object_gn(mesh, recon, decoder, *args)
-        launches = decoder_fused.sdf_and_input_grad.launches
+        launches = launches_since(mark)[0]
         check(launches == 2 * iters, f"13b: K1 launched {launches} times in {iters} sharded GN iterations")
         d = max(float((got[k] - ref[k]).abs().max()) for k in ("t_cam_obj", "code"))
         out["ref"][iters] = {k: v.cpu() for k, v in ref.items()}
@@ -2821,12 +2827,12 @@ def counted_gn(decoder, cfg: gn.GNConfig, args) -> tuple[dict, int, int]:
     profiler is the device's witness, and it may miss a launch of a kernel
     called through ctypes (19 of 20 once, as `kernel_device_ms` says), so
     `k1_counted` holds it to at least one and at most the count."""
-    decoder_fused.sdf_and_input_grad.launches = 0
+    mark = launch_mark()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         out = gn.batched_reconstruct(decoder, cfg)(*args)
         torch.cuda.synchronize()
     seen = sum(e.count for e in prof.key_averages() if "decoder_fused_kernel" in e.key)
-    return out, decoder_fused.sdf_and_input_grad.launches, seen
+    return out, launches_since(mark)[0], seen
 
 
 def k1_counted(launches: int, seen: int, expected: int) -> bool:
@@ -3059,11 +3065,10 @@ def phase_bench(prior: dict, prior_seconds: dict, name: str) -> dict:
 
     def counting(arm, run):
         def wrapped(device):
-            fast_score.fast_score_maps.launches = 0
-            decoder_fused.sdf_and_input_grad.launches = 0
+            mark = launch_mark()
             rec = run(device)
-            counted[arm] = {"record": rec, "k1": decoder_fused.sdf_and_input_grad.launches,
-                            "k2": fast_score.fast_score_maps.launches}
+            k1, k2 = launches_since(mark)
+            counted[arm] = {"record": rec, "k1": k1, "k2": k2}
             return rec
         return wrapped
 
@@ -3193,7 +3198,7 @@ def main():
         t10 = time.perf_counter()
         loop = phase_long_loop(name)
         reloc = phase_relocalization(system_cfg, images, poses, params, name)
-        drain_8b = [x * 1e3 for x in slam["system"].telemetry.samples["keyframe_drain"]]
+        drain_8b = [x * 1e3 for x in slam["timer"].samples["keyframe_drain"]]
         loop_slam = phase_loop_slam(system_cfg, os.path.join(tmp, "deepsdf"), images, poses, reloc["voc"],
                                     drain_8b, name)
         cg = phase_pose_graph_cg(name)

@@ -85,6 +85,7 @@ from ..slam.map import to_torch
 from ..slam.system import SLAMSystem
 from ..slam.tracking import TrackerConfig
 from ..utils.evaluation import ate_rmse, chamfer_distance, sample_sphere
+from ..utils import timing
 from ..utils.timing import StageTimer
 from .reconstruct_frame import resolve_device
 
@@ -404,12 +405,12 @@ def main(argv=None):
         det2d.make_prediction(to_torch(host_imgs[0][0], device))
         det2d.dispatches = det3d.dispatches = 0
         print(f"detector warm-up: {time.perf_counter() - t0:.1f} s")
-    system.attach_telemetry(timer)
+    previous_sink = system.attach_telemetry(timer)
     times = []
     pair = upload(0)
     for k in range(args.frames):
         if k == args.warmup:
-            timer.samples.clear()    # the stage record covers the steady state only
+            timer.clear()    # the stage record covers the steady state only
         next_pair = upload(k + 1) if k + 1 < args.frames else None
         t0 = time.perf_counter()
         system.track_stereo(*pair, k * 0.1)
@@ -418,6 +419,7 @@ def main(argv=None):
     system.flush()
     if channel is not None:
         channel.drain()
+    timing.attach(previous_sink)
 
     steady = np.asarray(times[args.warmup:])
     fps_mean, fps_median = 1.0 / steady.mean(), 1.0 / np.median(steady)
@@ -487,7 +489,7 @@ def main(argv=None):
         "ba_solves": system.local_mapper.ba_log, "ba_pt_cap_hits": system.local_mapper.ba_pt_cap_hits,
         "gn_dispatches": dict(pipeline.dispatches) if pipeline is not None else None,
         "expected_k1_launches": pipeline.expected_k1_launches() if pipeline is not None else 0,
-        "stage_ms": timer.summary_ms(),
+        "stage_ms": timer.summary_ms(), "counts": dict(timer.counts),
     }
     print(f"state={system.state.name} kfs={record['n_keyframes']} pts={record['n_points']} "
           f"objs={len(objs)} ({len(static)} static) detector_calls={record['detector_calls']} "
@@ -585,7 +587,7 @@ def main_mono(args, device):
     host_imgs = render_poses(lambda T: np.clip(world.render_pose(T), 0, 255).astype(np.uint8), traj)
     print(f"sensor pregen: {len(traj)} frames at {w}x{h}, {time.perf_counter() - t0:.1f} s")
     timer = StageTimer()
-    system.attach_telemetry(timer)
+    previous_sink = system.attach_telemetry(timer)
     times, dropped = [], 0
     dt = 1.0 / pace if args.paced else 0.1
     if args.paced:
@@ -602,18 +604,19 @@ def main_mono(args, device):
             if now < k * dt:
                 time.sleep(k * dt - now)
             if len(times) == args.warmup:
-                timer.samples.clear()    # steady-state stages only
+                timer.clear()    # steady-state stages only
             t0 = time.perf_counter()
             system.track_mono(host_imgs[k], k * dt)
             times.append(time.perf_counter() - t0)
     else:
         for k in range(args.frames):
             if k == args.warmup:
-                timer.samples.clear()    # steady-state stages only
+                timer.clear()    # steady-state stages only
             t0 = time.perf_counter()
             system.track_mono(host_imgs[k], k * dt)
             times.append(time.perf_counter() - t0)
     system.flush()
+    timing.attach(previous_sink)
 
     steady = np.asarray(times[args.warmup:] if len(times) > args.warmup else times)
     fps_mean, fps_median = 1.0 / steady.mean(), 1.0 / np.median(steady)
@@ -637,7 +640,7 @@ def main_mono(args, device):
         "travel_m": travel, "ate_rmse_cm": None if ate is None else ate * 100,
         "ate_frac_of_travel": None if ate is None else ate / travel,
         "n_keyframes": len(system.map.keyframes), "n_points": len(system.map.points),
-        "n_redone": system.tracker.n_redone, "stage_ms": timer.summary_ms(),
+        "n_redone": system.tracker.n_redone, "stage_ms": timer.summary_ms(), "counts": dict(timer.counts),
     }
     if args.mono_downscale > 1:
         record["downscale"] = args.mono_downscale

@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import lie
+from ..utils import timing
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -256,9 +257,11 @@ def bundle_adjust(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr,
              robust_cost(kf_poses, points, obj_T0, obs_valid, edge_i0))
     for round_idx, n_iters in enumerate(schedule):
         for _ in range(n_iters):
-            carry = gn_step(carry)
+            with timing.span("ba_lm_step"):
+                carry = gn_step(carry)
         if round_idx < len(schedule) - 1:
-            carry = reclassify(carry)
+            with timing.span("ba_reclassify"):
+                carry = reclassify(carry)
     kf_T, pts, inlier, obj_T, edge_inlier = carry[:5]
     return {"kf_poses": kf_T, "points": pts, "obs_inlier": inlier, "obj_poses": obj_T,
             "obj_edge_inlier": edge_inlier}

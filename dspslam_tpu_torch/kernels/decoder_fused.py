@@ -9,7 +9,9 @@ port of the Pallas TPU kernel `dspslam_tpu/ops/pallas/decoder_kernel.py`,
 threshold and no fallback. On a CPU tensor it runs
 `sdf_and_input_grad_plain`, the same computation as explicit PyTorch ops
 (forward, then backward by transposed matmuls and ReLU masks), which the
-tests and `chip_smoke.py` hold the kernel against.
+tests and `chip_smoke.py` hold the kernel against. Each launch adds 1 to
+the process-wide counter `k1_launches` and N to `k1_rows`
+(`utils.timing.count`).
 
 The kernel source is compiled with `nvcc` for `sm_90a` on first use by
 `kernels/_nvcc.py` and bound with ctypes. Weights are given in the
@@ -27,6 +29,7 @@ from typing import Sequence
 
 import torch
 
+from ..utils import timing
 from . import _nvcc
 
 IN_DIM = 67            # 64 code + 3 xyz
@@ -224,11 +227,9 @@ def sdf_and_input_grad(weights, biases, inputs: torch.Tensor, cluster: int | Non
         )
     if err != 0:
         raise RuntimeError(f"decoder_fused: kernel launch failed, CUDA error {err}")
-    sdf_and_input_grad.launches += 1
+    timing.count("k1_launches")
+    timing.count("k1_rows", n)
     return sdf, grad
-
-
-sdf_and_input_grad.launches = 0
 
 
 def sdf_and_input_grad_plain(weights, biases, inputs: torch.Tensor):

@@ -15,7 +15,8 @@ to 16 maps, the two 8-level pyramids of a stereo frame; the scores come
 back as views of one packed buffer, in the images' order. There is no
 fallback. On CPU tensors it runs `fast_score_maps_plain`, which is
 `fast_score_map_plain` per map, the same bit logic as PyTorch ops; the
-tests and `chip_smoke.py` hold the kernel against it.
+tests and `chip_smoke.py` hold the kernel against it. Each launch adds 1
+to the process-wide counter `k2_launches` (`utils.timing.count`).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from ..utils import timing
 from . import _nvcc
 
 # Bresenham circle of radius 3, (dx, dy), clockwise from the top: the
@@ -143,12 +145,10 @@ def fast_score_maps(images: Sequence[torch.Tensor], t_lo: float = 7.0, t_hi: flo
                 float(t_lo), float(t_hi), float(boost), stream)
             if err != 0:
                 raise RuntimeError(f"fast_score: kernel launch failed, CUDA error {err}")
-            fast_score_maps.launches += 1
+            timing.count("k2_launches")
             base += sum(im.numel() for im in chunk)
     return [t.view(im.shape) for t, im in zip(out.split([im.numel() for im in images]), images)]
 
-
-fast_score_maps.launches = 0
 
 
 def fast_score_maps_plain(images: Sequence[torch.Tensor], t_lo: float = 7.0,

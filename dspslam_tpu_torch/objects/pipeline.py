@@ -15,6 +15,8 @@ LocalMapping_util.cc):
 The batch is padded to a power-of-2 bucket (`_bucket`). With the canonical
 decoder on the card every GN iteration runs kernel K1: once per pose-only
 iteration, twice per joint iteration. `dispatches` counts the calls.
+Host preparation (the association, and each call's padding and upload)
+is the `obj_prep` span (`utils.timing`).
 
 The dynamic-object prediction horizon is the gap since the object's last
 MEASURED keyframe (`MapObject.last_measured_frame_id`). The JAX package
@@ -29,6 +31,7 @@ import torch
 
 from ..shape import gn, mesh as mesh_mod
 from ..slam.map import Map, MapObject, to_torch
+from ..utils import timing
 from . import association
 from .detections import Detection, pad_detections
 
@@ -140,16 +143,17 @@ class ObjectPipeline:
     def dispatch_keyframe(self, kf, local_kf_ids: list[int]):
         """Associate detections (host) and queue both GN calls without
         reading their results; apply_keyframe reads them."""
-        frame_gap = (
-            float(kf.frame_id - self.last_kf_frame_id) if self.last_kf_frame_id is not None else 1.0
-        )
-        self.last_kf_frame_id = kf.frame_id
-        if not kf.detections:
-            return None
-        local_objects = self._local_objects(local_kf_ids)
-        assoc, new_idx, bad_idx = association.associate_detections_centroid(
-            kf, local_objects, kf.T_cw, frame_gap=max(frame_gap, 1.0)
-        )
+        with timing.span("obj_prep"):
+            frame_gap = (
+                float(kf.frame_id - self.last_kf_frame_id) if self.last_kf_frame_id is not None else 1.0
+            )
+            self.last_kf_frame_id = kf.frame_id
+            if not kf.detections:
+                return None
+            local_objects = self._local_objects(local_kf_ids)
+            assoc, new_idx, bad_idx = association.associate_detections_centroid(
+                kf, local_objects, kf.T_cw, frame_gap=max(frame_gap, 1.0)
+            )
         start = _record_event(self.device, timing=True)
         measured = self._dispatch_measure(kf, assoc, frame_gap)
         recon = self._dispatch_recon(kf, [i for i in new_idx if i not in bad_idx])
@@ -234,68 +238,69 @@ class ObjectPipeline:
         """Pose-only GN for all associated detections in one batched call
         (queued only). Dynamic objects start from the constant-velocity
         prediction over their own horizon."""
-        entries = [
-            (det_idx, obj) for det_idx, obj in assoc.items()
-            if kf.detections[det_idx].num_surface_points >= association.MIN_PTS_ASSOCIATED
-        ]
-        if not entries:
-            return None
-        P = self.caps[1]
-        entries = entries[: self.caps[0]]
-        B = _bucket(len(entries), self.caps[0])
-        t_init = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
-        scales = np.ones(B, np.float32)
-        pts = np.zeros((B, P, 3), np.float32)
-        mask = np.zeros((B, P), np.float32)
-        codes = np.zeros((B, self.cfg.code_len), np.float32)
-        for i, (det_idx, obj) in enumerate(entries):
-            det: Detection = kf.detections[det_idx]
-            n = min(det.num_surface_points, P)
-            pts[i, :n] = det.surface_points[:n]
-            mask[i, :n] = 1.0
-            T_wo = obj.T_wo_se3
-            if obj.dynamic:
-                T_wo = T_wo.copy()
-                T_wo[:3, 3] = T_wo[:3, 3] + obj.velocity * self._horizon(obj, kf, frame_gap)
-            t_init[i] = (kf.T_cw @ T_wo).astype(np.float32)
-            scales[i] = obj.scale
-            codes[i] = obj.code[: self.cfg.code_len]
-        out = self.batched_pose(self._t(t_init), self._t(scales), self._t(pts), self._t(mask),
-                                self._t(codes))
+        with timing.span("obj_prep"):
+            entries = [
+                (det_idx, obj) for det_idx, obj in assoc.items()
+                if kf.detections[det_idx].num_surface_points >= association.MIN_PTS_ASSOCIATED
+            ]
+            if not entries:
+                return None
+            P = self.caps[1]
+            entries = entries[: self.caps[0]]
+            B = _bucket(len(entries), self.caps[0])
+            t_init = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
+            scales = np.ones(B, np.float32)
+            pts = np.zeros((B, P, 3), np.float32)
+            mask = np.zeros((B, P), np.float32)
+            codes = np.zeros((B, self.cfg.code_len), np.float32)
+            for i, (det_idx, obj) in enumerate(entries):
+                det: Detection = kf.detections[det_idx]
+                n = min(det.num_surface_points, P)
+                pts[i, :n] = det.surface_points[:n]
+                mask[i, :n] = 1.0
+                T_wo = obj.T_wo_se3
+                if obj.dynamic:
+                    T_wo = T_wo.copy()
+                    T_wo[:3, 3] = T_wo[:3, 3] + obj.velocity * self._horizon(obj, kf, frame_gap)
+                t_init[i] = (kf.T_cw @ T_wo).astype(np.float32)
+                scales[i] = obj.scale
+                codes[i] = obj.code[: self.cfg.code_len]
+            args = [self._t(a) for a in (t_init, scales, pts, mask, codes)]
+        out = self.batched_pose(*args)
         self.dispatches["measure"] += 1
         return entries, out, self._dispatch_refine(kf, entries)
 
     def _dispatch_refine(self, kf, entries):
         """Warm-started joint recon for re-observed static objects (queued
         only; applied for detections the triage keeps static)."""
-        cand = [
-            (det_idx, obj) for det_idx, obj in entries
-            if not obj.dynamic
-            and obj.n_shape_refinements < self.max_shape_refinements
-            and kf.detections[det_idx].rays is not None
-            and kf.detections[det_idx].num_surface_points >= MIN_PTS_RECON
-        ]
-        if not cand:
-            return None
-        B_cap, P, R = self.caps
-        cand = cand[:B_cap]
-        B = _bucket(len(cand), B_cap)
-        batch = pad_detections([kf.detections[i] for i, _ in cand], B, P, R)
-        t_init = np.asarray(batch["t_cam_obj"]).copy()
-        codes = np.zeros((B, self.cfg.code_len), np.float32)
-        for slot, (_, obj) in enumerate(cand):
-            t_init[slot] = (kf.T_cw @ obj.T_wo).astype(np.float32)
-            codes[slot] = obj.code[: self.cfg.code_len]
-        out = self._recon(t_init, batch, codes)
+        with timing.span("obj_prep"):
+            cand = [
+                (det_idx, obj) for det_idx, obj in entries
+                if not obj.dynamic
+                and obj.n_shape_refinements < self.max_shape_refinements
+                and kf.detections[det_idx].rays is not None
+                and kf.detections[det_idx].num_surface_points >= MIN_PTS_RECON
+            ]
+            if not cand:
+                return None
+            B_cap, P, R = self.caps
+            cand = cand[:B_cap]
+            B = _bucket(len(cand), B_cap)
+            batch = pad_detections([kf.detections[i] for i, _ in cand], B, P, R)
+            t_init = np.asarray(batch["t_cam_obj"]).copy()
+            codes = np.zeros((B, self.cfg.code_len), np.float32)
+            for slot, (_, obj) in enumerate(cand):
+                t_init[slot] = (kf.T_cw @ obj.T_wo).astype(np.float32)
+                codes[slot] = obj.code[: self.cfg.code_len]
+            args = self._recon_inputs(t_init, batch, codes)
+        out = self.batched_recon(*args)
         self.dispatches["refine"] += 1
         return cand, out
 
-    def _recon(self, t_init, batch, codes):
-        return self.batched_recon(
-            self._t(t_init), self._t(batch["pts"]), self._t(batch["pts_mask"]),
-            self._t(batch["rays"]), self._t(batch["ray_mask"]), self._t(batch["depth"]),
-            self._t(batch["fg_mask"]), self._t(codes),
-        )
+    def _recon_inputs(self, t_init, batch, codes):
+        """A joint GN call's arguments on the device."""
+        return [self._t(a) for a in (t_init, batch["pts"], batch["pts_mask"], batch["rays"],
+                                     batch["ray_mask"], batch["depth"], batch["fg_mask"], codes)]
 
     def _apply_measure(self, kf, pending, frame_gap: float = 1.0):
         """Apply the pose-only GN results with the reference's
@@ -359,19 +364,21 @@ class ObjectPipeline:
     # ------------------------------------------------------------------
     def _dispatch_recon(self, kf, new_indices):
         """Batched joint GN on all new detections (queued only)."""
-        dets, det_map = [], []
-        for i in new_indices:
-            det: Detection = kf.detections[i]
-            if det.is_front and det.rays is not None and det.num_surface_points >= MIN_PTS_RECON:
-                dets.append(det)
-                det_map.append(i)
-        if not dets:
-            return None
-        B_cap, P, R = self.caps
-        B = _bucket(len(dets), B_cap)
-        batch = pad_detections(dets, B, P, R)
-        t_init = self._calibrated_t_init(np.asarray(batch["t_cam_obj"]).copy(), dets)
-        out = self._recon(t_init, batch, np.zeros((B, self.cfg.code_len), np.float32))
+        with timing.span("obj_prep"):
+            dets, det_map = [], []
+            for i in new_indices:
+                det: Detection = kf.detections[i]
+                if det.is_front and det.rays is not None and det.num_surface_points >= MIN_PTS_RECON:
+                    dets.append(det)
+                    det_map.append(i)
+            if not dets:
+                return None
+            B_cap, P, R = self.caps
+            B = _bucket(len(dets), B_cap)
+            batch = pad_detections(dets, B, P, R)
+            t_init = self._calibrated_t_init(np.asarray(batch["t_cam_obj"]).copy(), dets)
+            args = self._recon_inputs(t_init, batch, np.zeros((B, self.cfg.code_len), np.float32))
+        out = self.batched_recon(*args)
         self.dispatches["recon"] += 1
         return det_map, out
 

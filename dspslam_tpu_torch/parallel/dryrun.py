@@ -30,10 +30,10 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from ..kernels import decoder_fused
 from ..models import deepsdf, deepsdf_train
 from ..shape import gn, mesh as mesh_mod
 from ..slam.map import entry_device
+from ..utils import timing
 from . import mesh_utils
 
 
@@ -213,9 +213,9 @@ def _case_gn(case, dev):
     decoder = _decoder(case["decoder"], dev)
     recon = gn.batched_reconstruct(decoder, gn.GNConfig(**case["gn_config"]))
     args = [a.to(dev) for a in case["args"]]
-    decoder_fused.sdf_and_input_grad.launches = 0
+    before = timing.totals().get("k1_launches", 0)
     out = mesh_utils.sharded_object_gn(mesh, recon, decoder, *args)
-    return {**{k: v.cpu() for k, v in out.items()}, "k1_launches": decoder_fused.sdf_and_input_grad.launches}
+    return {**{k: v.cpu() for k, v in out.items()}, "k1_launches": timing.totals().get("k1_launches", 0) - before}
 
 
 def _case_apps(case, dev):

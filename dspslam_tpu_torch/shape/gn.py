@@ -25,6 +25,7 @@ import torch
 
 from ..ops import lie
 from ..ops.robust import robust_residuals
+from ..utils import timing
 from . import losses
 
 
@@ -113,46 +114,50 @@ def reconstruct_object(
     )
 
     for _ in range(config.num_iterations):
-        J_s, r_s, m_s = losses.sdf_surface_loss(
-            decoder, pts_cam, pts_mask, t_obj_cam, code
-        )
-        rr_s, sdf_loss, _ = robust_residuals(r_s, config.b2, m_s)
-        J_r, r_r, m_r, aux = losses.render_loss(
-            decoder, rays, ray_mask, depth_obs, fg_mask, t_obj_cam, code,
-            num_samples=config.num_depth_samples, cut_off=config.cut_off,
-            max_grad_points=config.max_grad_points, max_eval_points=max_eval_points,
-        )
-        rr_r, render_loss_val, _ = robust_residuals(r_r, config.b1, m_r)
-        J_rot, r_rot = losses.rotation_prior_loss(t_obj_cam)
+        with timing.span("gn_iter"):
+            with timing.span("gn_sdf"):
+                J_s, r_s, m_s = losses.sdf_surface_loss(
+                    decoder, pts_cam, pts_mask, t_obj_cam, code
+                )
+                rr_s, sdf_loss, _ = robust_residuals(r_s, config.b2, m_s)
+            with timing.span("gn_render"):
+                J_r, r_r, m_r, aux = losses.render_loss(
+                    decoder, rays, ray_mask, depth_obs, fg_mask, t_obj_cam, code,
+                    num_samples=config.num_depth_samples, cut_off=config.cut_off,
+                    max_grad_points=config.max_grad_points, max_eval_points=max_eval_points,
+                )
+                rr_r, render_loss_val, _ = robust_residuals(r_r, config.b1, m_r)
+            with timing.span("gn_solve"):
+                J_rot, r_rot = losses.rotation_prior_loss(t_obj_cam)
 
-        H_s, b_s = _masked_normal_eqs(J_s, rr_s, m_s)
-        H_r, b_r = _masked_normal_eqs(J_r, rr_r, m_r)
-        H = config.k1 * H_r + config.k2 * H_s
-        b = config.k1 * b_r + config.k2 * b_s
-        H[:, POSE_DIM:, POSE_DIM:] += eye_code
-        b[:, POSE_DIM:] -= config.k3 * code
-        H[:, :POSE_DIM, :POSE_DIM] += config.k4 * (J_rot[:, :, None] * J_rot[:, None, :])
-        b[:, :POSE_DIM] -= config.k4 * J_rot * r_rot[:, None]
-        H[:, :POSE_DIM, :POSE_DIM] += eye_pose
-        H[:, POSE_DIM - 1, POSE_DIM - 1] += config.scale_damping
+                H_s, b_s = _masked_normal_eqs(J_s, rr_s, m_s)
+                H_r, b_r = _masked_normal_eqs(J_r, rr_r, m_r)
+                H = config.k1 * H_r + config.k2 * H_s
+                b = config.k1 * b_r + config.k2 * b_s
+                H[:, POSE_DIM:, POSE_DIM:] += eye_code
+                b[:, POSE_DIM:] -= config.k3 * code
+                H[:, :POSE_DIM, :POSE_DIM] += config.k4 * (J_rot[:, :, None] * J_rot[:, None, :])
+                b[:, :POSE_DIM] -= config.k4 * J_rot * r_rot[:, None]
+                H[:, :POSE_DIM, :POSE_DIM] += eye_pose
+                H[:, POSE_DIM - 1, POSE_DIM - 1] += config.scale_damping
 
-        dx, info = torch.linalg.solve_ex(H, b)
-        dx[:, POSE_DIM - 1] = torch.clamp(
-            dx[:, POSE_DIM - 1], -config.max_scale_step, config.max_scale_step
-        )
-        t_obj_cam_new = lie.exp_sim3(config.learning_rate * dx[:, :POSE_DIM]) @ t_obj_cam
-        code_new = code + config.learning_rate * dx[:, POSE_DIM:]
+                dx, info = torch.linalg.solve_ex(H, b)
+                dx[:, POSE_DIM - 1] = torch.clamp(
+                    dx[:, POSE_DIM - 1], -config.max_scale_step, config.max_scale_step
+                )
+                t_obj_cam_new = lie.exp_sim3(config.learning_rate * dx[:, :POSE_DIM]) @ t_obj_cam
+                code_new = code + config.learning_rate * dx[:, POSE_DIM:]
 
-        loss = config.k1 * render_loss_val + config.k2 * sdf_loss
-        healthy = (
-            torch.isfinite(loss)
-            & torch.all(torch.isfinite(dx), dim=-1)
-            & (info == 0)
-            & ((aux["n_valid_query"] >= config.min_render_points) | ~render_required)
-        )
-        t_obj_cam = torch.where(healthy[:, None, None], t_obj_cam_new, t_obj_cam)
-        code = torch.where(healthy[:, None], code_new, code)
-        is_good = is_good & healthy
+                loss = config.k1 * render_loss_val + config.k2 * sdf_loss
+                healthy = (
+                    torch.isfinite(loss)
+                    & torch.all(torch.isfinite(dx), dim=-1)
+                    & (info == 0)
+                    & ((aux["n_valid_query"] >= config.min_render_points) | ~render_required)
+                )
+                t_obj_cam = torch.where(healthy[:, None, None], t_obj_cam_new, t_obj_cam)
+                code = torch.where(healthy[:, None], code_new, code)
+                is_good = is_good & healthy
 
     return {
         "t_cam_obj": lie.inverse_sim3(t_obj_cam),
@@ -178,27 +183,28 @@ def estimate_pose_cam_obj(
     surface points are re-gated to inliers (|res| <= thresh), as in the
     reference. Returns dict(t_cam_obj (B, 4, 4) SE(3), loss (B,)).
     """
-    dev, dt = t_cam_obj_se3.device, t_cam_obj_se3.dtype
-    t_cam_obj = t_cam_obj_se3.clone()
-    t_cam_obj[:, :3, :3] *= scale[:, None, None]
-    t_obj_cam = torch.linalg.inv(t_cam_obj)
-    mask = pts_mask
-    loss = torch.zeros(scale.shape, device=dev, dtype=dt)
-    damping = config.pose_only_damping * torch.eye(6, device=dev, dtype=dt)
-    for e in range(config.pose_only_iterations):
-        J, r, m = losses.sdf_surface_loss(decoder, pts_cam, mask, t_obj_cam, code)
-        _, loss, _ = robust_residuals(r, config.pose_only_inlier_thresh, m)
-        J6 = J[..., :6]
-        n = torch.clamp(torch.sum(m, dim=-1), min=1.0)[:, None]
-        H = (J6.transpose(-1, -2) @ J6) / n[..., None] + damping
-        b = -(J6.transpose(-1, -2) @ r[..., None])[..., 0] / n  # plain residual
-        dx = torch.linalg.solve_ex(H, b)[0]
-        t_obj_cam = lie.exp_se3(dx) @ t_obj_cam
-        if e == 4:
-            mask = mask * (torch.abs(r) <= config.pose_only_inlier_thresh)
-    t_cam_obj_out = torch.linalg.inv(t_obj_cam)
-    t_cam_obj_out[:, :3, :3] /= scale[:, None, None]
-    return {"t_cam_obj": t_cam_obj_out, "loss": loss}
+    with timing.span("gn_pose_only"):
+        dev, dt = t_cam_obj_se3.device, t_cam_obj_se3.dtype
+        t_cam_obj = t_cam_obj_se3.clone()
+        t_cam_obj[:, :3, :3] *= scale[:, None, None]
+        t_obj_cam = torch.linalg.inv(t_cam_obj)
+        mask = pts_mask
+        loss = torch.zeros(scale.shape, device=dev, dtype=dt)
+        damping = config.pose_only_damping * torch.eye(6, device=dev, dtype=dt)
+        for e in range(config.pose_only_iterations):
+            J, r, m = losses.sdf_surface_loss(decoder, pts_cam, mask, t_obj_cam, code)
+            _, loss, _ = robust_residuals(r, config.pose_only_inlier_thresh, m)
+            J6 = J[..., :6]
+            n = torch.clamp(torch.sum(m, dim=-1), min=1.0)[:, None]
+            H = (J6.transpose(-1, -2) @ J6) / n[..., None] + damping
+            b = -(J6.transpose(-1, -2) @ r[..., None])[..., 0] / n  # plain residual
+            dx = torch.linalg.solve_ex(H, b)[0]
+            t_obj_cam = lie.exp_se3(dx) @ t_obj_cam
+            if e == 4:
+                mask = mask * (torch.abs(r) <= config.pose_only_inlier_thresh)
+        t_cam_obj_out = torch.linalg.inv(t_obj_cam)
+        t_cam_obj_out[:, :3, :3] /= scale[:, None, None]
+        return {"t_cam_obj": t_cam_obj_out, "loss": loss}
 
 
 def batched_estimate_pose(decoder, config: GNConfig):

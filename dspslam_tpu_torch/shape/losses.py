@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import lie
+from ..utils import timing
 
 
 def sdf_to_occupancy(sdf: torch.Tensor, th: float = 0.01) -> torch.Tensor:
@@ -116,12 +117,14 @@ def render_loss(
         flat_valid = valid.reshape(B, R * S).to(dt)
         eval_idx = torch.sort(flat_valid, dim=-1, descending=True, stable=True).indices[:, :max_eval_points]
         pts_eval = torch.gather(pts_obj, 1, eval_idx[..., None].expand(-1, -1, 3))
+        timing.count("grid_rows", B * max_eval_points)
         sdf_eval = decoder(_with_code(code, pts_eval)).reshape(B, max_eval_points)
         live = torch.gather(flat_valid, 1, eval_idx) > 0
         sdf = torch.full((B, R * S), 1e3, device=dev, dtype=dt).scatter(
             1, eval_idx, torch.where(live, sdf_eval, torch.full_like(sdf_eval, 1e3))
         ).reshape(B, R, S)
     else:
+        timing.count("grid_rows", B * R * S)
         sdf = decoder(_with_code(code, pts_obj)).reshape(B, R, S)
     occ = torch.where(valid, sdf_to_occupancy(sdf, cut_off), torch.zeros_like(sdf))
 

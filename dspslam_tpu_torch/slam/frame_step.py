@@ -24,6 +24,7 @@ import torch
 
 from ..frontend import matcher, orb, stereo
 from ..ops import lie
+from ..utils import timing
 from . import pose_opt
 
 BIG = 1 << 20
@@ -80,11 +81,12 @@ def _match_stages(orb_params, radii, intrinsics, feats_l, u_right,
         return torch.stack([u, v], -1), valid * ok
 
     def stage(T_init, pos, desc, valid, radius):
-        proj, v = project(T_init, pos, valid)
-        idx, dist = matcher.match_by_projection(proj, v, desc, None, feats_l, radius=radius)
-        pts_w, obs, inv_s2, vmask, smask, _ = _resolve_and_pack(
-            idx, dist, feats_l, u_right, pos, v
-        )
+        with timing.span("track_search"):
+            proj, v = project(T_init, pos, valid)
+            idx, dist = matcher.match_by_projection(proj, v, desc, None, feats_l, radius=radius)
+            pts_w, obs, inv_s2, vmask, smask, _ = _resolve_and_pack(
+                idx, dist, feats_l, u_right, pos, v
+            )
         T, inlier, n_in = pose_opt.optimize_pose(
             T_init, pts_w, obs, inv_s2, vmask, smask, intrinsics
         )
@@ -101,8 +103,10 @@ def _match_stages(orb_params, radii, intrinsics, feats_l, u_right,
 def _two_stage_track(orb_params, radii, img_l, img_r, bf, max_disparity, intrinsics,
                      T_pred, last, local):
     """Shared stereo body: extraction + stereo + motion / local stages."""
-    feats_l, feats_r = orb.extract_stereo(img_l, img_r, orb_params)
-    st = stereo.stereo_match(feats_l, feats_r, img_l, img_r, bf, max_disparity)
+    with timing.span("track_orb"):
+        feats_l, feats_r = orb.extract_stereo(img_l, img_r, orb_params)
+    with timing.span("track_stereo"):
+        st = stereo.stereo_match(feats_l, feats_r, img_l, img_r, bf, max_disparity)
     result = _match_stages(
         orb_params, radii, intrinsics, feats_l, st["u_right"], T_pred, *last, *local
     )
@@ -184,7 +188,8 @@ def track_frame_mono(orb_params: orb.ORBParams, radii: tuple, img, intrinsics, T
     drops the stereo residual from the pose GN. Needs a distortion-free
     camera: the tracker undistorts keypoints on the host, in its modular
     path, for lens-distorted ones."""
-    feats = orb.extract(img, orb_params)
+    with timing.span("track_orb"):
+        feats = orb.extract(img, orb_params)
     result = _match_stages(
         orb_params, radii, intrinsics, feats, _no_right(feats), T_pred,
         last_pos, last_desc, last_level, last_dist, last_valid,
@@ -231,7 +236,8 @@ def track_frame_rgbd(orb_params: orb.ORBParams, radii: tuple, img, depth_img, bf
     """One RGB-D frame: extraction, the depth lookup and the motion / local
     stages; the virtual u_right feeds the same stereo residual as true
     stereo. Returns (feats, depth_out, result). Distortion-free cameras."""
-    feats = orb.extract(img, orb_params)
+    with timing.span("track_orb"):
+        feats = orb.extract(img, orb_params)
     st = _rgbd_stereo_from_depth(feats, depth_img, bf)
     result = _match_stages(
         orb_params, radii, intrinsics, feats, st["u_right"], T_pred,

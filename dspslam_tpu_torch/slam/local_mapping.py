@@ -21,16 +21,15 @@ Keyframe erasure removes the keyframe from every keyframe's covisibility
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import logging
-import time
 
 import numpy as np
 import torch
 
 from ..backend import ba
 from ..objects.pipeline import results_ready
+from ..utils import timing
 from . import keyframe_step
 from .map import KeyFrame, Map, MapPoint, entry_device, to_torch
 from .tracking import _host_result, _prefetch_to_host
@@ -100,22 +99,9 @@ class LocalMapper:
         self._pending_obj = None      # (kf, obj_pending) awaiting apply
         self._ba_kf = None            # KF whose BA dispatch awaits tri apply
         self._skip_polls = 0          # let dispatched work overlap a frame
-        self.telemetry = None         # optional utils.timing.StageTimer
         # one record per applied BA solve: edges, edge inliers, device ms
         self.ba_log: list[dict] = []
         self.ba_pt_cap_hits = 0       # solves whose window exceeded BA_PT_CAP
-
-    @contextlib.contextmanager
-    def _span(self, name: str):
-        """Host wall time of a mapping sub-stage (no device sync)."""
-        if self.telemetry is None:
-            yield
-            return
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.telemetry.add(name, time.perf_counter() - t0)
 
     def _timing_event(self):
         """A timing CUDA event recorded now (None on the CPU)."""
@@ -135,14 +121,14 @@ class LocalMapper:
         """One keyframe through the mapping stages. Triangulation is queued
         first, then the object GN calls; results are read after all of them
         are queued."""
-        with self._span("kf_flush_prev"):
+        with timing.span("kf_flush_prev"):
             self.flush()             # drain anything from the previous KF
         self.map.update_covisibility(kf)
         self._cull_points(kf)
         needs_fresh_points = getattr(self.object_pipeline, "uses_map_points", False)
         defer = self.cfg.async_keyframe and not needs_fresh_points
         tri_sync = None
-        with self._span("kf_tri_dispatch"):
+        with timing.span("kf_tri_dispatch"):
             if defer:
                 self._pending_tri = self._dispatch_triangulate(kf, triangulate)
             elif needs_fresh_points:
@@ -156,15 +142,15 @@ class LocalMapper:
         obj_pending = None
         if self.object_pipeline is not None:
             local_ids = self.map.local_keyframes(kf, self.cfg.window)
-            with self._span("kf_obj_dispatch"):
+            with timing.span("kf_obj_dispatch"):
                 obj_pending = self.object_pipeline.dispatch_keyframe(kf, local_ids)
             if defer and self.cfg.async_objects:
                 self._pending_obj = (kf, obj_pending)
             else:
-                with self._span("obj_apply"):
+                with timing.span("obj_apply"):
                     self.object_pipeline.apply_keyframe(kf, obj_pending)
         if tri_sync is not None:
-            with self._span("tri_apply"):
+            with timing.span("tri_apply"):
                 self._apply_triangulate(tri_sync)
         if defer:
             # BA must see the triangulated points: poll() dispatches it
@@ -172,11 +158,11 @@ class LocalMapper:
             self._ba_kf = kf
             self._skip_polls = 1
         elif self.cfg.async_ba:
-            with self._span("ba_dispatch"):
+            with timing.span("ba_dispatch"):
                 self._pending_ba = self.dispatch_bundle_adjust(kf)
             self._skip_polls = 1
         else:
-            with self._span("ba_sync"):
+            with timing.span("ba_sync"):
                 self.local_bundle_adjust(kf)
         self._cull_keyframes(kf)
 
@@ -190,37 +176,37 @@ class LocalMapper:
             if not results_ready(self._pending_tri["event"]):
                 return
             pending, self._pending_tri = self._pending_tri, None
-            with self._span("tri_apply"):
+            with timing.span("tri_apply"):
                 self._apply_triangulate(pending)
             if self._ba_kf is not None:
                 kf, self._ba_kf = self._ba_kf, None
                 if not kf.bad:
                     if self.cfg.async_ba:
-                        with self._span("ba_dispatch"):
+                        with timing.span("ba_dispatch"):
                             self._pending_ba = self.dispatch_bundle_adjust(kf)
                         self._skip_polls = 1
                     else:
-                        with self._span("ba_sync"):
+                        with timing.span("ba_sync"):
                             self.local_bundle_adjust(kf)
             return
         if self._pending_obj is not None:
             if not results_ready(self._pending_obj[1]):
                 return
             (kf, obj_pending), self._pending_obj = self._pending_obj, None
-            with self._span("obj_apply"):
+            with timing.span("obj_apply"):
                 self.object_pipeline.apply_keyframe(kf, obj_pending)
             return
         if self._pending_ba is not None:
             if not results_ready(self._pending_ba["event"]):
                 return
-            with self._span("ba_apply"):
+            with timing.span("ba_apply"):
                 self.apply_pending_ba()
             return
         # idle poll: finalize one deferred mesh (the mono pipeline meshes
         # synchronously and defers none)
         pipeline = self.object_pipeline
         if getattr(pipeline, "_pending_meshes", None) and pipeline.meshes_ready():
-            with self._span("mesh_collect"):
+            with timing.span("mesh_collect"):
                 pipeline.collect_meshes(limit=1)
 
     def apply_pending_ba(self):
@@ -284,8 +270,40 @@ class LocalMapper:
         duplicate fusion (SearchInNeighbors + ORBmatcher::Fuse) as one
         queued device call (slam.keyframe_step); the host applies the
         pre-validated results in _apply_triangulate."""
-        N = kf.n
-        t0 = time.perf_counter()
+        with timing.span("tri_host_prep"):
+            neighbors, pts, fuse = self._triangulate_inputs(kf, triangulate)
+        if not neighbors and not pts:
+            return None
+        with timing.span("tri_call"):
+            N, M, C = kf.n, keyframe_step.MAX_NEIGHBORS, keyframe_step.FUSE_CAP
+            # neighbour features are each keyframe's device copy; empty slots
+            # reuse kf's own, masked by nb_ok = 0
+            kf_dev = kf.feats_torch(self.device)
+            nb_list = tuple(neighbors[i].feats_torch(self.device) if i < len(neighbors) else kf_dev
+                            for i in range(M))
+            nb_T = np.tile(np.eye(4, dtype=np.float32), (M, 1, 1))
+            nb_has = np.ones((M, N), np.float32)
+            nb_ok = np.zeros(M, np.float32)
+            for i, other in enumerate(neighbors):
+                nb_T[i] = other.T_cw
+                nb_has[i] = (other.map_point_ids >= 0).astype(np.float32)
+                nb_ok[i] = 1.0
+            depth_pos = (kf.depth > 0).astype(np.float32) if kf.depth is not None else np.zeros(N, np.float32)
+            d = self.device
+            out = keyframe_step.keyframe_matching(
+                kf_dev, to_torch(np.asarray(kf.T_cw, np.float32), d),
+                to_torch((kf.map_point_ids >= 0).astype(np.float32), d), to_torch(depth_pos, d),
+                nb_list, to_torch(nb_T, d), to_torch(nb_has, d), to_torch(nb_ok, d),
+                *(to_torch(a, d) for a in fuse), to_torch(np.zeros(C, np.int32), d), self.intrinsics,
+            )
+            host, event = _prefetch_to_host({"out": out})
+        return {"host": host, "event": event, "kf": kf, "neighbors": neighbors,
+                "pts": pts, "n_f": len(pts)}
+
+    def _triangulate_inputs(self, kf: KeyFrame, triangulate: bool):
+        """The triangulation's neighbour keyframes, the fusion candidates
+        (neighbour map points not yet observed by kf) and their padded
+        (position, valid, descriptor) arrays."""
         neighbors = []
         if triangulate:
             for other_id in kf.covisible_keyframes(4):
@@ -297,8 +315,6 @@ class LocalMapper:
                 neighbors.append(other)
                 if len(neighbors) == keyframe_step.MAX_NEIGHBORS:
                     break
-        M = keyframe_step.MAX_NEIGHBORS
-        # fusion candidates: neighbour map points not yet observed by kf
         neighbor_pts = {}
         for other_id in kf.covisible_keyframes(5):
             other = self.map.keyframes.get(other_id)
@@ -319,38 +335,7 @@ class LocalMapper:
             fuse_pos[:n_f] = np.stack([p.position for p in pts])
             fuse_valid[:n_f] = 1.0
             fuse_desc[:n_f] = np.stack([p.descriptor for p in pts])
-        if not neighbors and not n_f:
-            return None
-        if self.telemetry is not None:
-            self.telemetry.add("tri_host_prep", time.perf_counter() - t0)
-            t0 = time.perf_counter()
-
-        # neighbour features are each keyframe's device copy; empty slots
-        # reuse kf's own, masked by nb_ok = 0
-        kf_dev = kf.feats_torch(self.device)
-        nb_list = tuple(neighbors[i].feats_torch(self.device) if i < len(neighbors) else kf_dev
-                        for i in range(M))
-        nb_T = np.tile(np.eye(4, dtype=np.float32), (M, 1, 1))
-        nb_has = np.ones((M, N), np.float32)
-        nb_ok = np.zeros(M, np.float32)
-        for i, other in enumerate(neighbors):
-            nb_T[i] = other.T_cw
-            nb_has[i] = (other.map_point_ids >= 0).astype(np.float32)
-            nb_ok[i] = 1.0
-        depth_pos = (kf.depth > 0).astype(np.float32) if kf.depth is not None else np.zeros(N, np.float32)
-        d = self.device
-        out = keyframe_step.keyframe_matching(
-            kf_dev, to_torch(np.asarray(kf.T_cw, np.float32), d),
-            to_torch((kf.map_point_ids >= 0).astype(np.float32), d), to_torch(depth_pos, d),
-            nb_list, to_torch(nb_T, d), to_torch(nb_has, d), to_torch(nb_ok, d),
-            to_torch(fuse_pos, d), to_torch(fuse_valid, d), to_torch(fuse_desc, d),
-            to_torch(np.zeros(C, np.int32), d), self.intrinsics,
-        )
-        host, event = _prefetch_to_host({"out": out})
-        if self.telemetry is not None:
-            self.telemetry.add("tri_call", time.perf_counter() - t0)
-        return {"host": host, "event": event, "kf": kf, "neighbors": neighbors,
-                "pts": pts, "n_f": n_f}
+        return neighbors, pts, (fuse_pos, fuse_valid, fuse_desc)
 
     def _apply_triangulate(self, pending):
         out = _host_result(pending["host"], pending["event"])["out"]
@@ -452,7 +437,22 @@ class LocalMapper:
 
     def dispatch_bundle_adjust(self, kf: KeyFrame):
         """Pack the covisibility window and queue the device BA (no read
-        back; see LocalMapperConfig.async_ba).
+        back; see LocalMapperConfig.async_ba)."""
+        with timing.span("ba_pack"):
+            packed = self._pack_bundle_adjust(kf)
+        if packed is None:
+            return None
+        args, obj_state, pending = packed
+        start = self._timing_event()
+        out = ba.bundle_adjust(*args, self.intrinsics, 1e-3, obj_state)
+        stop = self._timing_event()
+        host, event = _prefetch_to_host({"out": out})
+        return {"host": host, "event": event, "timing": (start, stop), **pending}
+
+    def _pack_bundle_adjust(self, kf: KeyFrame):
+        """The window's BA inputs on the device: (the ten tensor arguments,
+        obj_state or None, the slots the apply needs); None when there is
+        nothing to solve.
 
         As the reference's local BA (Optimizer_util.cc:309-430): the window
         is optimized, and every other keyframe observing a window point
@@ -576,18 +576,11 @@ class LocalMapper:
             else:
                 obj_slot = obj_fixed = None
 
-        start = self._timing_event()
-        out = ba.bundle_adjust(
-            *(to_torch(a, d) for a in (kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr,
-                                       obs_stereo, obs_inv_s2, obs_valid)),
-            self.intrinsics, 1e-3, obj_state,
-        )
-        stop = self._timing_event()
-        host, event = _prefetch_to_host({"out": out})
-        return {
-            "host": host, "event": event, "timing": (start, stop), "kf_slot": kf_slot,
-            "kf_fixed": kf_fixed, "pt_slot": pt_slot, "obs_refs": obs_refs, "obs_valid": obs_valid,
-            "obj_slot": obj_slot, "obj_fixed": obj_fixed, "n_edges": n_edges,
+        args = tuple(to_torch(a, d) for a in (kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr,
+                                              obs_stereo, obs_inv_s2, obs_valid))
+        return args, obj_state, {
+            "kf_slot": kf_slot, "kf_fixed": kf_fixed, "pt_slot": pt_slot, "obs_refs": obs_refs,
+            "obs_valid": obs_valid, "obj_slot": obj_slot, "obj_fixed": obj_fixed, "n_edges": n_edges,
         }
 
     def _apply_bundle_adjust(self, pending):

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import lie
+from ..utils import timing
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -63,29 +64,30 @@ def optimize_pose(T_cw_init, pts_w, obs, inv_sigma2, valid, stereo_mask, intrins
     pts_w (N, 3), obs (N, 3) [u, v, u_right], inv_sigma2 / valid /
     stereo_mask (N,), intrinsics (5,) [fx, fy, cx, cy, bf]. chi2_anneal
     scales the chi2 threshold per round (the default keeps it constant)."""
-    fx, fy, cx, cy, bf = (intrinsics[i] for i in range(5))
-    rounds, iters = rounds_iters
-    anneal = tuple(chi2_anneal) + (1.0,) * max(0, rounds - len(chi2_anneal))
-    chi2_base = torch.where(stereo_mask > 0, CHI2_STEREO, CHI2_MONO)
-    damp = damping * torch.eye(6, dtype=pts_w.dtype, device=pts_w.device)
+    with timing.span("pose_opt"):
+        fx, fy, cx, cy, bf = (intrinsics[i] for i in range(5))
+        rounds, iters = rounds_iters
+        anneal = tuple(chi2_anneal) + (1.0,) * max(0, rounds - len(chi2_anneal))
+        chi2_base = torch.where(stereo_mask > 0, CHI2_STEREO, CHI2_MONO)
+        damp = damping * torch.eye(6, dtype=pts_w.dtype, device=pts_w.device)
 
-    T = T_cw_init
-    inlier = valid
-    for r in range(rounds):
-        chi2_th = chi2_base * anneal[r]
-        for _ in range(iters):
-            res, J = _residuals_and_jac(T, pts_w, obs, stereo_mask, fx, fy, cx, cy, bf)
+        T = T_cw_init
+        inlier = valid
+        for r in range(rounds):
+            chi2_th = chi2_base * anneal[r]
+            for _ in range(iters):
+                res, J = _residuals_and_jac(T, pts_w, obs, stereo_mask, fx, fy, cx, cy, bf)
+                chi2 = torch.sum(res * res, dim=-1) * inv_sigma2
+                hub = torch.where(
+                    chi2 <= chi2_th, 1.0, torch.sqrt(chi2_th / torch.clamp(chi2, min=1e-12))
+                )
+                w = inlier * valid * inv_sigma2 * hub
+                Jw = (J * w[:, None, None]).reshape(-1, 6)
+                H = Jw.t() @ J.reshape(-1, 6) + damp
+                b = -(Jw.t() @ res.reshape(-1))
+                dx = torch.linalg.solve_ex(H, b).result
+                T = lie.exp_se3(dx) @ T
+            res, _ = _residuals_and_jac(T, pts_w, obs, stereo_mask, fx, fy, cx, cy, bf)
             chi2 = torch.sum(res * res, dim=-1) * inv_sigma2
-            hub = torch.where(
-                chi2 <= chi2_th, 1.0, torch.sqrt(chi2_th / torch.clamp(chi2, min=1e-12))
-            )
-            w = inlier * valid * inv_sigma2 * hub
-            Jw = (J * w[:, None, None]).reshape(-1, 6)
-            H = Jw.t() @ J.reshape(-1, 6) + damp
-            b = -(Jw.t() @ res.reshape(-1))
-            dx = torch.linalg.solve_ex(H, b).result
-            T = lie.exp_se3(dx) @ T
-        res, _ = _residuals_and_jac(T, pts_w, obs, stereo_mask, fx, fy, cx, cy, bf)
-        chi2 = torch.sum(res * res, dim=-1) * inv_sigma2
-        inlier = (chi2 <= chi2_th).to(torch.float32) * valid
-    return T, inlier, torch.sum(inlier)
+            inlier = (chi2 <= chi2_th).to(torch.float32) * valid
+        return T, inlier, torch.sum(inlier)

@@ -24,7 +24,6 @@ pass device="cpu" to run on the CPU (the kernels' plain versions).
 from __future__ import annotations
 
 import dataclasses
-import time
 from enum import Enum
 
 import numpy as np
@@ -32,6 +31,7 @@ import torch
 
 from ..frontend import matcher, orb, stereo, undistort
 from ..ops import lie_np
+from ..utils import timing
 from . import frame_step, initializer, pose_opt
 from .map import Frame, KeyFrame, Map, MapPoint, entry_device, feats_to_numpy, to_torch
 
@@ -168,8 +168,6 @@ class Tracker:
         self.relocalizer = None                   # hook: relocalization (later slice)
         self.localization_only = False            # tracking against a frozen map
         self.mapper_idle_fn = None                # set by the system facade
-        self.telemetry = None                     # optional StageTimer: result_fetch
-        # spans are the frame's wait for its device results
         # pipelined-mode state (cfg.pipelined)
         self.frame_seq = 0                        # per-call sequence index
         self._current_seq = -1                    # seq of the frame being finalized
@@ -191,10 +189,6 @@ class Tracker:
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
-
-    def _span(self, name: str, t0: float):
-        if self.telemetry is not None:
-            self.telemetry.add(name, time.perf_counter() - t0)
 
     def _to_device(self, *arrays):
         """Host numpy arrays -> device tensors (uint32 as int32 bits)."""
@@ -292,11 +286,12 @@ class Tracker:
 
     def _last_pack(self):
         """Device pack of the last frame's tracked map points."""
-        ids = self.last_frame.map_point_ids
-        _, lpos, ldesc, llvl, ldist, lval = _pack_map_points(
-            self._entries_from_ids(ids[ids >= 0]), LOCAL_POINT_CAP
-        )
-        return self._to_device(lpos, ldesc, llvl, ldist, lval)
+        with timing.span("track_pack"):
+            ids = self.last_frame.map_point_ids
+            _, lpos, ldesc, llvl, ldist, lval = _pack_map_points(
+                self._entries_from_ids(ids[ids >= 0]), LOCAL_POINT_CAP
+            )
+            return self._to_device(lpos, ldesc, llvl, ldist, lval)
 
     def _process_fused(self, mode: str, imgs: tuple, timestamp: float) -> Frame:
         dev_imgs = self._upload(mode, imgs)
@@ -305,12 +300,11 @@ class Tracker:
         T_pred = (self.velocity @ self.last_frame.T_cw).astype(np.float32)
         feats_j, st_j, result_j, _ = self._program(mode, dev_imgs, dev, *self._to_device(T_pred), last)
         # one fetch for everything the host needs this frame
-        t0 = time.perf_counter()
-        tree = {"feats": feats_j, "result": result_j}
-        if st_j is not None:
-            tree["st"] = st_j
-        out = _host_result(*_prefetch_to_host(tree))
-        self._span("result_fetch", t0)
+        with timing.span("result_fetch"):
+            tree = {"feats": feats_j, "result": result_j}
+            if st_j is not None:
+                tree["st"] = st_j
+            out = _host_result(*_prefetch_to_host(tree))
         frame = self._frame(timestamp, out["feats"], out.get("st"))
         frame, _ = self._apply_fused_result(frame, out["result"], cid, cpos, cval)
         return frame
@@ -320,67 +314,69 @@ class Tracker:
         acceptance, match bookkeeping, stats, KF decision, fallbacks.
         Returns (frame, ok); ok False means the device track was rejected
         and the modular fallback ran (recovered or LOST)."""
-        n_in = int(result["n_inliers"])
-        # motion-model acceptance mirrors the reference: the prediction
-        # stage must find >= 20 matches (Tracking::TrackWithMotionModel),
-        # else tracking falls back to the prior-free reference-KF search
-        ok = int(result["n_motion"]) >= max(self.cfg.min_track_matches, 20) \
-            and n_in >= max(self.cfg.min_inliers, 30) \
-            and bool(np.isfinite(result["T_cw"]).all())
-        if ok:
-            frame.T_cw = np.asarray(result["T_cw"], np.float32)
-            idx = result["match_idx"]
-            inlier = result["inlier"]
-            frame.map_point_ids[:] = -1
-            for c in np.nonzero(inlier > 0)[0]:
-                kp = int(idx[c])
-                if kp >= 0 and cid[c] >= 0:
-                    frame.map_point_ids[kp] = cid[c]
-            self.n_inliers = n_in
-            self.state = State.OK
-            if velocity is not None:
-                self.velocity = np.asarray(velocity, np.float32)
-            else:
-                self._update_velocity(frame)
-            self._update_point_stats(frame, cid, cpos, cval)
-            if self._need_new_keyframe(frame):
-                self._create_keyframe(frame)
-            self.frames_since_kf += 1
-        else:
-            # fall back to the modular path (reference-KF search etc.)
-            mod_ok = self._track_reference_keyframe(frame)
-            if mod_ok:
-                mod_ok = self._track_local_map(frame)
-            if mod_ok:
+        with timing.span("track_apply"):
+            n_in = int(result["n_inliers"])
+            # motion-model acceptance mirrors the reference: the prediction
+            # stage must find >= 20 matches (Tracking::TrackWithMotionModel),
+            # else tracking falls back to the prior-free reference-KF search
+            ok = int(result["n_motion"]) >= max(self.cfg.min_track_matches, 20) \
+                and n_in >= max(self.cfg.min_inliers, 30) \
+                and bool(np.isfinite(result["T_cw"]).all())
+            if ok:
+                frame.T_cw = np.asarray(result["T_cw"], np.float32)
+                idx = result["match_idx"]
+                inlier = result["inlier"]
+                frame.map_point_ids[:] = -1
+                for c in np.nonzero(inlier > 0)[0]:
+                    kp = int(idx[c])
+                    if kp >= 0 and cid[c] >= 0:
+                        frame.map_point_ids[kp] = cid[c]
+                self.n_inliers = n_in
                 self.state = State.OK
-                self._update_velocity(frame)
+                if velocity is not None:
+                    self.velocity = np.asarray(velocity, np.float32)
+                else:
+                    self._update_velocity(frame)
+                self._update_point_stats(frame, cid, cpos, cval)
                 if self._need_new_keyframe(frame):
                     self._create_keyframe(frame)
                 self.frames_since_kf += 1
             else:
-                self.state = State.LOST
-                if len(self.map.keyframes) <= 5 and self.relocalizer is None:
-                    self.reset()
-        self.trajectory.append((frame.timestamp, frame.T_cw.copy(), self.state != State.OK))
-        self.last_frame = frame
-        return frame, ok
+                # fall back to the modular path (reference-KF search etc.)
+                mod_ok = self._track_reference_keyframe(frame)
+                if mod_ok:
+                    mod_ok = self._track_local_map(frame)
+                if mod_ok:
+                    self.state = State.OK
+                    self._update_velocity(frame)
+                    if self._need_new_keyframe(frame):
+                        self._create_keyframe(frame)
+                    self.frames_since_kf += 1
+                else:
+                    self.state = State.LOST
+                    if len(self.map.keyframes) <= 5 and self.relocalizer is None:
+                        self.reset()
+            self.trajectory.append((frame.timestamp, frame.T_cw.copy(), self.state != State.OK))
+            self.last_frame = frame
+            return frame, ok
 
     def _local_pack(self):
         """Packed local-map candidates, host + device copies, cached until
         the map changes (keyframe insertion / culling)."""
-        cache_key = (self.ref_kf.id, len(self.map.points), len(self.map.keyframes))
-        if getattr(self, "_local_cache_key", None) != cache_key:
-            kf_ids = self.map.local_keyframes(self.ref_kf, 20)
-            local_entries = self._entries_from_ids(self.map.points_seen_by(kf_ids))
-            self._local_cache = _pack_map_points(local_entries, LOCAL_POINT_CAP)
-            cid, cpos, cdesc, clvl, cdist, cval = self._local_cache
-            self._local_cache_dev = self._to_device(cpos, cdesc, clvl, cdist, cval)
-            # object refs aligned with cid rows, resolved once per refresh
-            self._local_cache_objs = [
-                self.map.points.get(int(i)) if i >= 0 else None for i in cid
-            ]
-            self._local_cache_key = cache_key
-        return self._local_cache, self._local_cache_dev
+        with timing.span("track_pack"):
+            cache_key = (self.ref_kf.id, len(self.map.points), len(self.map.keyframes))
+            if getattr(self, "_local_cache_key", None) != cache_key:
+                kf_ids = self.map.local_keyframes(self.ref_kf, 20)
+                local_entries = self._entries_from_ids(self.map.points_seen_by(kf_ids))
+                self._local_cache = _pack_map_points(local_entries, LOCAL_POINT_CAP)
+                cid, cpos, cdesc, clvl, cdist, cval = self._local_cache
+                self._local_cache_dev = self._to_device(cpos, cdesc, clvl, cdist, cval)
+                # object refs aligned with cid rows, resolved once per refresh
+                self._local_cache_objs = [
+                    self.map.points.get(int(i)) if i >= 0 else None for i in cid
+                ]
+                self._local_cache_key = cache_key
+            return self._local_cache, self._local_cache_dev
 
     # ------------------------------------------------------------------
     # pipelined steady-state path (cfg.pipelined)
@@ -450,9 +446,8 @@ class Tracker:
     def _finalize_inflight(self, h) -> Frame:
         """Wait for a dispatched frame's results and run the host
         bookkeeping (one frame behind in pipelined mode)."""
-        t0 = time.perf_counter()
-        out = _host_result(h["host"], h["event"])
-        self._span("result_fetch", t0)
+        with timing.span("result_fetch"):
+            out = _host_result(h["host"], h["event"])
         result = out["result"]
         frame = self._frame(h["timestamp"], h["feats_j"], out.get("st"))
         cur_seq = self._current_seq
@@ -481,36 +476,38 @@ class Tracker:
         return out
 
     def _process_modular(self, mode: str, imgs: tuple, timestamp: float) -> Frame:
-        if mode == "stereo":
-            jl, jr = self._upload(mode, imgs)
-            feats_l, feats_r = orb.extract_stereo(jl, jr, self.orb_params)
-            st = stereo.stereo_match(
-                feats_l, feats_r, jl, jr, float(self.cfg.bf),
-                float(self.cfg.bf / 0.5),  # max disparity ~ minZ 0.5 m
-            )
-            out = _host_result(*_prefetch_to_host({"feats": feats_l, "st": st}))
-            frame = self._frame(timestamp, out["feats"], out["st"])
-        else:
-            feats = orb.extract(self._upload_image(imgs[0]), self.orb_params)
-            feats = _host_result(*_prefetch_to_host({"feats": feats}))["feats"]
-            st = None
-            if mode == "rgbd":
-                # the depth lookup reads RAW pixels (the sensor image); the
-                # geometry downstream uses undistorted ones
-                # (Frame::ComputeStereoFromRGBD)
-                depth = imgs[1]
-                depth = depth.cpu().numpy() if isinstance(depth, torch.Tensor) else np.asarray(depth)
-                xy = feats["xy"].astype(np.int32)
-                d = depth[np.clip(xy[:, 1], 0, depth.shape[0] - 1),
-                          np.clip(xy[:, 0], 0, depth.shape[1] - 1)].astype(np.float32)
-                d = np.where(feats["valid"] > 0, d, -1.0)
-            self._undistort_feats(feats)
-            if mode == "rgbd":
-                ur = np.where(d > 0, feats["xy"][:, 0] - self.cfg.bf / np.maximum(d, 1e-6), -1.0)
-                st = {"depth": d, "u_right": ur}
-            frame = self._frame(timestamp, feats, st)
-        self._track(frame, mono=mode == "mono")
-        return frame
+        """Stage-by-stage tracking: initialization, loss and fallback frames."""
+        with timing.span("track_modular"):
+            if mode == "stereo":
+                jl, jr = self._upload(mode, imgs)
+                feats_l, feats_r = orb.extract_stereo(jl, jr, self.orb_params)
+                st = stereo.stereo_match(
+                    feats_l, feats_r, jl, jr, float(self.cfg.bf),
+                    float(self.cfg.bf / 0.5),  # max disparity ~ minZ 0.5 m
+                )
+                out = _host_result(*_prefetch_to_host({"feats": feats_l, "st": st}))
+                frame = self._frame(timestamp, out["feats"], out["st"])
+            else:
+                feats = orb.extract(self._upload_image(imgs[0]), self.orb_params)
+                feats = _host_result(*_prefetch_to_host({"feats": feats}))["feats"]
+                st = None
+                if mode == "rgbd":
+                    # the depth lookup reads RAW pixels (the sensor image); the
+                    # geometry downstream uses undistorted ones
+                    # (Frame::ComputeStereoFromRGBD)
+                    depth = imgs[1]
+                    depth = depth.cpu().numpy() if isinstance(depth, torch.Tensor) else np.asarray(depth)
+                    xy = feats["xy"].astype(np.int32)
+                    d = depth[np.clip(xy[:, 1], 0, depth.shape[0] - 1),
+                              np.clip(xy[:, 0], 0, depth.shape[1] - 1)].astype(np.float32)
+                    d = np.where(feats["valid"] > 0, d, -1.0)
+                self._undistort_feats(feats)
+                if mode == "rgbd":
+                    ur = np.where(d > 0, feats["xy"][:, 0] - self.cfg.bf / np.maximum(d, 1e-6), -1.0)
+                    st = {"depth": d, "u_right": ur}
+                frame = self._frame(timestamp, feats, st)
+            self._track(frame, mono=mode == "mono")
+            return frame
 
     def _undistort_feats(self, feats: dict):
         """Replace raw keypoint pixels with undistorted ones in place

@@ -28,6 +28,7 @@ from dspslam_tpu.models import deepsdf as jdeepsdf
 from dspslam_tpu_torch.apps import train_deepsdf
 from dspslam_tpu_torch.kernels import decoder_fused
 from dspslam_tpu_torch.models import deepsdf, deepsdf_train
+from dspslam_tpu_torch.utils import timing
 
 WIDE = dict(code_len=8, hidden=(64,) * 4, latent_in=(2,), use_tanh=True)
 BF16_SDF_TOL = 1e-2
@@ -142,9 +143,9 @@ def test_dispatch_by_config(monkeypatch, kw, route):
     cfg = deepsdf.DecoderConfig(**kw)
     dec = deepsdf.params_from_jax(numpy_params(cfg.layer_dims(), seed=8), cfg)
     x = torch.from_numpy(inputs(5, cfg.in_dim, seed=9))
-    launches = k1.launches
+    launches = timing.totals().get("k1_launches", 0)
     sdf, grad = dec.sdf_and_input_grad(x)
-    assert calls == [route] and k1.launches == launches
+    assert calls == [route] and timing.totals().get("k1_launches", 0) == launches
     if route == "k1":
         sdf_p, grad_p = decoder_fused.sdf_and_input_grad_plain(list(dec.weights), list(dec.biases), x)
         assert torch.equal(sdf, sdf_p) and torch.equal(grad, grad_p)

@@ -21,6 +21,7 @@ from dspslam_tpu.ops.pallas import fast_kernel
 from dspslam_tpu_torch.datasets.synthetic import blob_images
 from dspslam_tpu_torch.frontend import orb as torb
 from dspslam_tpu_torch.kernels import fast_score
+from dspslam_tpu_torch.utils import timing
 
 
 def blob_image(h, w, seed=0):
@@ -52,9 +53,9 @@ def test_k2_batch_pads_each_image_alone():
 
 def test_k2_wrapper_on_cpu_takes_the_plain_version_and_checks_inputs():
     img = torch.from_numpy(blob_image(30, 50))
-    before = fast_score.fast_score_maps.launches
+    before = timing.totals().get("k2_launches", 0)
     (out,) = fast_score.fast_score_maps([img], 7.0, 20.0, 1e4)
-    assert fast_score.fast_score_maps.launches == before
+    assert timing.totals().get("k2_launches", 0) == before
     assert torch.equal(out, fast_score.fast_score_map_plain(img[None], 7.0, 20.0, 1e4)[0])
     with pytest.raises(ValueError, match="float32"):
         fast_score.fast_score_maps([img.double()])
@@ -74,9 +75,9 @@ def test_multi_map_plain_is_the_plain_version_per_map():
     whatever the shapes, in order; no kernel launch."""
     shapes = [(40, 70), (40, 70), (33, 21), (7, 5), (64, 90)]
     imgs = [torch.from_numpy(blob_image(h, w, seed=i)) for i, (h, w) in enumerate(shapes)]
-    before = fast_score.fast_score_maps.launches
+    before = timing.totals().get("k2_launches", 0)
     outs = fast_score.fast_score_maps(imgs, 7.0, 20.0, 1e4)
-    assert fast_score.fast_score_maps.launches == before
+    assert timing.totals().get("k2_launches", 0) == before
     assert len(outs) == len(imgs)
     for img, out in zip(imgs, outs):
         assert torch.equal(out, fast_score.fast_score_map_plain(img[None], 7.0, 20.0, 1e4)[0])

@@ -23,6 +23,7 @@ from dspslam_tpu_torch.datasets.synthetic import blob_images
 from dspslam_tpu_torch.frontend import orb
 from dspslam_tpu_torch.kernels import decoder_fused, fast_score
 from dspslam_tpu_torch.models import deepsdf
+from dspslam_tpu_torch.utils import timing
 
 
 @pytest.fixture
@@ -53,14 +54,14 @@ def test_k1_kernel_matches_plain(cuda, n, cluster):
     x = torch.from_numpy(
         (np.random.default_rng(n).normal(size=(n, 67)) * 0.3).astype(np.float32)
     ).to(cuda)
-    before = decoder_fused.sdf_and_input_grad.launches
+    before = timing.totals().get("k1_launches", 0)
     if cluster is None:
         sdf, grad = dec.sdf_and_input_grad(x)
     else:
         sdf, grad = decoder_fused.sdf_and_input_grad(
             list(dec.weights), list(dec.biases), x, cluster=cluster)
     torch.cuda.synchronize()
-    assert decoder_fused.sdf_and_input_grad.launches == before + 1
+    assert timing.totals().get("k1_launches", 0) == before + 1
     sdf_p, grad_p = decoder_fused.sdf_and_input_grad_plain(list(dec.weights), list(dec.biases), x)
     assert (sdf - sdf_p).abs().max().item() <= 1e-5
     err = (grad - grad_p).abs().amax(dim=1)
@@ -89,10 +90,10 @@ def test_non_canonical_decoder_raises(cuda):
     cfg = deepsdf.DecoderConfig(code_len=8, hidden=(32,) * 4, latent_in=(2,), matmul_precision="highest")
     dec = deepsdf.init_params(cfg, torch.Generator().manual_seed(0), cuda)
     x = torch.from_numpy((np.random.default_rng(4).normal(size=(300, 11)) * 0.3).astype(np.float32)).to(cuda)
-    before = decoder_fused.sdf_and_input_grad.launches
+    before = timing.totals().get("k1_launches", 0)
     sdf, grad = dec.sdf_and_input_grad(x)
     sdf64, grad64 = deepsdf.sdf_and_input_grad_generic(dec.double(), x.double())
-    assert decoder_fused.sdf_and_input_grad.launches == before
+    assert timing.totals().get("k1_launches", 0) == before
     assert (sdf.double() - sdf64).abs().max().item() <= 1e-5
     err = (grad.double() - grad64).abs().amax(dim=1).cpu().numpy()
     assert np.quantile(err, 0.99) < 1e-4 and (err > 1e-4).sum() <= 3
@@ -104,10 +105,10 @@ def test_non_canonical_decoder_raises(cuda):
 @pytest.mark.parametrize("shape", [(1, 376, 1241), (1, 49, 130), (2, 105, 346)])
 def test_k2_kernel_matches_plain(cuda, shape):
     img = torch.from_numpy(blob_images(*shape, seed=shape[1])).to(cuda)
-    before = fast_score.fast_score_maps.launches
+    before = timing.totals().get("k2_launches", 0)
     out = torch.stack(fast_score.fast_score_maps(list(img), 7.0, 20.0, 1e4))
     torch.cuda.synchronize()
-    assert fast_score.fast_score_maps.launches == before + 1
+    assert timing.totals().get("k2_launches", 0) == before + 1
     ref = fast_score.fast_score_map_plain(img, 7.0, 20.0, 1e4)
     assert torch.equal(out, ref)
     assert int((ref >= 1e4).sum()) > 10
@@ -138,10 +139,10 @@ def test_k2_multi_map_launch_exact(cuda, which):
         shapes = [(1, 1), (17, 33), (16, 32), (15, 31), (49, 130), (3, 200), (200, 3)]
         maps = [torch.from_numpy(blob_images(1, h, w, seed=i)[0]).to(cuda)
                 for i, (h, w) in enumerate(shapes)]
-    before = fast_score.fast_score_maps.launches
+    before = timing.totals().get("k2_launches", 0)
     outs = fast_score.fast_score_maps(maps, 7.0, 20.0, 1e4)
     torch.cuda.synchronize()
-    assert fast_score.fast_score_maps.launches == before + 1
+    assert timing.totals().get("k2_launches", 0) == before + 1
     refs = fast_score.fast_score_maps_plain(maps, 7.0, 20.0, 1e4)
     for out, ref in zip(outs, refs):
         assert torch.equal(out, ref), tuple(ref.shape)
