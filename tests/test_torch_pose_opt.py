@@ -98,3 +98,53 @@ def test_project_stereo_matches_jax():
     ref = jpo.project_stereo(jnp.asarray(T0), jnp.asarray(p["pts_w"]), *INTR)
     out = tpo.project_stereo(torch.from_numpy(T0), torch.from_numpy(p["pts_w"]), *INTR.tolist())
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-3, rtol=1e-6)
+
+
+SETTINGS = (1e-3, (4, 10), (1.0, 1.0, 1.0, 1.0))
+
+
+def _args(seed, stereo, n, cap):
+    T0, p = _problem(seed, stereo, n=n, cap=cap)
+    return tuple(torch.from_numpy(a) for a in
+                 (T0, p["pts_w"], p["obs"], p["inv_s2"], p["valid"], p["smask"], INTR))
+
+
+@pytest.mark.parametrize("cap", [64, 4096])
+@pytest.mark.parametrize("stereo", [True, False])
+def test_pose_graph_body_matches_eager(stereo, cap):
+    """The body a CUDA graph captures, run here without one on its static
+    buffers: the eager GN's result, and a second load's inputs are read
+    (no stale buffer)."""
+    graph, poses = None, []
+    for seed in (3, 4):
+        args = _args(seed, stereo, min(300, cap // 2), cap)
+        ref = tpo.optimize_pose(*args)
+        if graph is None:
+            graph = tpo.PoseGraph(args, SETTINGS)
+        graph.load(args)
+        graph.run()
+        T, inlier, n_in = graph.outputs
+        assert (T - ref[0]).abs().max() <= 1e-6
+        assert torch.equal(inlier, ref[1]) and float(n_in) == float(ref[2])
+        poses.append(T.clone())
+    assert not torch.equal(poses[0], poses[1])
+
+
+def test_cholesky_solve_spd_matches_solve_ex(monkeypatch):
+    """The card's solve on damped SPD systems scaled like the GN's, and the
+    whole GN with it in place of `solve_ex`."""
+    g = torch.Generator().manual_seed(0)
+    scale = torch.tensor([400.0, 400.0, 400.0, 3000.0, 3000.0, 3000.0])
+    for _ in range(50):
+        J = torch.randn(600, 6, generator=g) * scale
+        H = J.t() @ J + 1e-3 * torch.eye(6)
+        b = torch.randn(6, generator=g) * 1e4
+        ref = torch.linalg.solve_ex(H, b).result
+        assert (tpo.cholesky_solve_spd(H, b) - ref).norm() <= 1e-5 * ref.norm()
+    for stereo in (True, False):
+        args = _args(5, stereo, 300, 400)
+        ref = tpo.optimize_pose(*args)
+        with monkeypatch.context() as m:
+            m.setattr(tpo, "_solve", tpo.cholesky_solve_spd)
+            out = tpo.optimize_pose(*args)
+        assert (out[0] - ref[0]).abs().max() <= 1e-5 and torch.equal(out[1], ref[1])
