@@ -175,7 +175,7 @@ Phases (any failure exits non-zero, and no result line is printed):
      c. the closed loops of tests/test_detector_closed_loop.py (slow there)
         with the port's trainers on the card under that file's assertions,
         with deterministic algorithms (a seed gives one result in every
-        run): Mask R-CNN 600 steps, PointPillars 320 steps, the BN trainer
+        run): Mask R-CNN 600 steps, PointPillars 640 steps, the BN trainer
         600 steps on 4 unseen scenes; one Mask R-CNN loss and gradient card vs
         CPU (1e-4 relative, 1e-3 of each tensor's largest gradient); ms per
         step of each trainer;
@@ -2452,12 +2452,12 @@ def phase_closed_loops(name: str) -> dict:
     pcfg = pointpillars_train.small_config()
     t0 = time.perf_counter()
     with layers.deterministic():
-        pparams, scan, pgt = pointpillars_train.overfit_scene(pcfg, steps=320, seed=0, device=DEV)
+        pparams, scan, pgt = pointpillars_train.overfit_scene(pcfg, steps=640, seed=0, device=DEV)
         boxes = pointpillars.Detector3D(params=pparams, cfg=pcfg, device=DEV).make_prediction(scan)
     torch.cuda.synchronize()
     pfit_s = time.perf_counter() - t0
     prep = pointpillars_train.closed_loop_report(boxes, pgt, pcfg)
-    print(f"[12c] PointPillars closed loop (small config, 320 steps, deterministic, {pfit_s:.1f} s with the "
+    print(f"[12c] PointPillars closed loop (small config, 640 steps, deterministic, {pfit_s:.1f} s with the "
           f"prediction): {prep['detections']} detections for {len(pgt)} planted; centre distances "
           f"{[round(d, 4) for d in prep['dists']]} m, each detection's nearest planted "
           f"{[round(d, 4) for d in prep['far']]} m; size errors w {prep['w_err']:.4f}, l {prep['l_err']:.4f} m")

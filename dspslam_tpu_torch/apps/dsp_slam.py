@@ -11,8 +11,9 @@ Port of dspslam_tpu/apps/dsp_slam.py. Usage:
 
 The per-frame loop mirrors dsp_slam.cc:62-105: track stereo, feed each
 keyframe its object detections (the online MaskRCNN and PointPillars on
-`--device` when the config says `detect_online`, else offline labels),
-save the map and the
+`--device` when the config says `detect_online`, at the settings of its
+detection section's `detector_2d` / `detector_3d` blocks, else offline
+labels), save the map and the
 trajectory at the end, print median / mean tracking times. `--device`
 defaults to cuda; asking for cuda without a card is an error, never a
 silent run on the CPU. `--profile_dir` writes a torch.profiler trace.
@@ -144,6 +145,7 @@ def main(argv=None):
     system_cfg = cfg_mod.SystemConfig.load(args.config) if args.config else cfg_mod.SystemConfig()
     if args.settings:
         system_cfg = cfg_mod.SystemConfig.from_reference_yaml(args.settings, base=system_cfg)
+    # the detection section carries the detectors' settings to get_detectors
     seq = KITTISequence(args.sequence_dir, system_cfg.detection, device=device)
     voc = None
     if args.vocabulary:

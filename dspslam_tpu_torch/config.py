@@ -75,6 +75,10 @@ class DetectionConfig:
     max_detections: int = 8
     max_surface_points: int = 256
     max_rays: int = 512
+    # the online detectors' settings (detect_online): MaskRCNNConfig and
+    # PointPillarsConfig fields by name; None keeps their defaults
+    detector_2d: Optional[dict] = dataclasses.field(default=None, hash=False)
+    detector_3d: Optional[dict] = dataclasses.field(default=None, hash=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +97,11 @@ class SystemConfig:
     # a per-sequence OpenCV YAML + a dataset JSON + mmcv python configs)
     def to_json(self, path: str | None = None) -> str:
         d = dataclasses.asdict(self)
+        # the detectors' blocks only where set (None is the networks'
+        # defaults): a file without them stays readable by the JAX package
+        for key in ("detector_2d", "detector_3d"):
+            if d["detection"][key] is None:
+                del d["detection"][key]
         s = json.dumps(d, indent=2, sort_keys=True)
         if path:
             with open(path, "w") as f:

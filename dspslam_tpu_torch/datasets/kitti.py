@@ -18,18 +18,33 @@ import numpy as np
 from ..detect import maskrcnn, offline, pointpillars
 from ..objects import detections as det_mod
 from ..utils import io as io_mod
+from ..utils import timing
 
 
-def get_detectors(det_cfg, object_class: str = "cars", device=None,
-                  cfg_2d: maskrcnn.MaskRCNNConfig = maskrcnn.MaskRCNNConfig(),
-                  cfg_3d: pointpillars.PointPillarsConfig = pointpillars.PointPillarsConfig()):
+def _settings(cls, block):
+    """A frozen detector config from a block of its fields (lists as tuples)."""
+    block = block or {}
+    return cls(**{k: tuple(v) if isinstance(v, list) else v for k, v in block.items()})
+
+
+def detector_configs(det_cfg):
+    """(MaskRCNNConfig, PointPillarsConfig) of the detection section's
+    `detector_2d` / `detector_3d` blocks; each config's defaults where its
+    block is absent."""
+    return (_settings(maskrcnn.MaskRCNNConfig, getattr(det_cfg, "detector_2d", None)),
+            _settings(pointpillars.PointPillarsConfig, getattr(det_cfg, "detector_3d", None)))
+
+
+def get_detectors(det_cfg, object_class: str = "cars", device=None):
     """Online-detector factory (reference reconstruct/__init__.py:1-13):
     (detector_2d, detector_3d) on `device` (None means cuda), or (None,
-    None) for offline labels. Configured weight paths that exist are
+    None) for offline labels. The networks' settings are the configured
+    ones (`detector_configs`). Configured weight paths that exist are
     ingested from the reference's mmdet / mmdet3d checkpoints; otherwise
     the networks carry seeded random weights."""
     if det_cfg is None or not getattr(det_cfg, "detect_online", False):
         return None, None
+    cfg_2d, cfg_3d = detector_configs(det_cfg)
     w2d = getattr(det_cfg, "weight_path_2d", None)
     params_2d = maskrcnn.load_mmdet_checkpoint(w2d, cfg_2d) if w2d and os.path.exists(w2d) else None
     det2d = maskrcnn.Detector2D(params=params_2d, cfg=cfg_2d, object_class=object_class, device=device)
@@ -38,6 +53,22 @@ def get_detectors(det_cfg, object_class: str = "cars", device=None,
                  if w3d and os.path.exists(w3d) else None)
     det3d = pointpillars.Detector3D(params=params_3d, cfg=cfg_3d, device=device)
     return det2d, det3d
+
+
+def detect_online(detector_2d, detector_3d, image, velo):
+    """One keyframe's online detection (kitti_sequence.py's
+    FrameWithLiDAR.get_detections with detect_online): PointPillars on the
+    scan and Mask R-CNN on the image, both dispatched before either is
+    collected -> (boxes_3d (K, 7), boxes_2d (M, 5), masks_2d (M, H, W)).
+    `image` is (H, W, 3) RGB or (H, W) grey, a host array or a tensor on
+    the detector's device; `velo` the (N, 4) scan on the host."""
+    with timing.span("detect"):
+        h3d = detector_3d.dispatch(velo)
+        h2d = detector_2d.dispatch(image)
+        with timing.span("det_collect"):
+            boxes_3d = detector_3d.collect(h3d)
+            pred = detector_2d.collect(h2d)
+    return boxes_3d, pred["pred_boxes"], pred["pred_masks"]
 
 
 class KITTISequence:
@@ -82,18 +113,14 @@ class KITTISequence:
 
     def get_frame_detections(self, frame_id: int, image_hw):
         """Per-frame object measurements (kitti_sequence.py's
-        FrameWithLiDAR.get_detections): both online detectors, dispatched
-        together and then collected, when configured; otherwise cached-label
+        FrameWithLiDAR.get_detections): both online detectors
+        (`detect_online`) when configured; otherwise cached-label
         playback."""
         cfg = self.det_cfg
         velo = self.load_velodyne(frame_id)
         if self.detector_3d is not None:
             img = io_mod.load_image_rgb(os.path.join(self.rgb_dir, f"{frame_id:06d}.png"))
-            h3d = self.detector_3d.dispatch(velo)
-            h2d = self.detector_2d.dispatch(img)
-            boxes_3d = self.detector_3d.collect(h3d)
-            pred = self.detector_2d.collect(h2d)
-            boxes_2d, masks_2d = pred["pred_boxes"], pred["pred_masks"]
+            boxes_3d, boxes_2d, masks_2d = detect_online(self.detector_2d, self.detector_3d, img, velo)
         else:
             boxes_3d = offline.load_labels_3d(cfg.path_label_3d, frame_id)
             boxes_2d, masks_2d = offline.load_labels_2d(cfg.path_label_2d, frame_id)

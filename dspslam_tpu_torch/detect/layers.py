@@ -6,6 +6,9 @@ semantics (dspslam_tpu/detect/{maskrcnn,pointpillars}.py):
   the bias added after the product is rounded to the activation dtype (two
   roundings in bf16, as `lax.conv_general_dilated(...) + b` has);
 - `max_pool_same`: the 3x3/2 max pool as a -inf-padded window;
+- `conv_transpose2d`: a transposed convolution whose kernel equals its
+  stride (mmdet's ConvTranspose2d upsample layers), IOHW weights as mmdet
+  stores them, the bias added after the product in the activation dtype;
 - `resize_nearest`: `jax.image.resize(..., "nearest")`, half-pixel centres
   (`F.interpolate(mode="nearest")` floors i * in / out instead);
 - `true_div`: division by a Python number as IEEE division on the card too
@@ -49,6 +52,23 @@ def conv2d_same(x: torch.Tensor, p: dict, stride: int = 1) -> torch.Tensor:
     w = p["w"].to(x.dtype)
     x = _pad_same(x, w.shape[-2], w.shape[-1], stride)
     return F.conv2d(x, w, stride=stride) + p["b"].to(x.dtype)[None, :, None, None]
+
+
+def conv_transpose2d(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """NCHW transposed convolution with IOHW weights p["w"] (in, out, k, k)
+    at stride k, and bias p["b"]; both cast to the activation dtype, the
+    bias added in it. With the kernel equal to the stride each input pixel
+    writes its own k x k block, so the layer is one product, (pixels, in)
+    by (in, out k k), and a reshuffle of its columns into the blocks (its
+    gradients are products too, which accumulate in f32 for bf16 on every
+    device, where the CPU's bf16 transposed convolution loses its input
+    gradient)."""
+    w = p["w"].to(x.dtype)
+    cin, cout, k, _ = w.shape
+    n, _, h, wd = x.shape
+    y = x.permute(0, 2, 3, 1).reshape(-1, cin) @ w.reshape(cin, cout * k * k)
+    y = y.view(n, h, wd, cout, k, k).permute(0, 3, 1, 4, 2, 5).reshape(n, cout, h * k, wd * k)
+    return y + p["b"].to(x.dtype)[None, :, None, None]
 
 
 def max_pool_same(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:

@@ -4,10 +4,12 @@ Port of dspslam_tpu/detect/maskrcnn.py, the reference's mmdet wrapper
 (reconstruct/detector2d.py + configs/config_maskrcnn.py) rebuilt from
 scratch:
 
-  ResNet-50 (BN folded) -> FPN (P2..P6) -> RPN -> fixed-K proposals
+  (test_scale: bilinear resize, zero pad to size_divisor)
+  -> ResNet-50 (BN folded) -> FPN (P2..P6) -> RPN -> fixed-K proposals
   -> RoIAlign (7x7) -> box head (2 FC) -> per-class decode + NMS
-  -> RoIAlign (14x14) on kept boxes -> mask head -> 28x28 masks
-  -> paste to full-resolution instance masks (host)
+  -> RoIAlign (14x14) on kept boxes -> mask head (4 convs, a 2x2
+  stride-2 transposed convolution) -> 28x28 masks
+  -> boxes scaled back, masks pasted at the input's size (host)
 
 Every stage has a fixed shape (top-k and validity flags, no dynamic
 filtering), greedy NMS is a fixed-K loop over device tensors, and nothing
@@ -16,8 +18,21 @@ the device, so `Detector2D.dispatch` returns while the card works. The
 backbone runs in `backbone_dtype` (bf16 by default, JAX's own choice); the
 heads and all box math run in f32 with TF32 off. RoIAlign is the gather
 form (JAX's `roi_align_matmul` works around slow TPU gathers and is not
-ported). `load_mmdet_checkpoint` ingests mmdet .pth weights with
+ported). `load_mmdet_checkpoint` ingests mmdet 2.x .pth weights with
 BatchNorm folding.
+
+mmdetection's test pipeline (mask_rcnn_r50_fpn_1x_coco.py) is the
+configuration's: `test_scale` (1333, 800) resizes the image keeping its
+aspect ratio (376 x 1241 -> 404 x 1333) and pads it to a multiple of
+`size_divisor` (416 x 1344); the RPN keeps the best `rpn_pre_nms` anchors
+of each level, suppresses within each level (`rpn_nms_across_levels`
+False, mmdet's batched NMS over level ids) and keeps `rpn_post_nms`
+proposals; the R-CNN keeps `max_detections`. The defaults keep the JAX
+package's cut (native size, 512 / 128, NMS across levels, 16).
+
+The stage functions (`resnet_fpn`, `rpn_heads`, `rpn_select`, `box_head`,
+`select_boxes`, `mask_head`) are module attributes that `detect` calls
+through the module: the benchmark's check taps them.
 
 The validity filter matches the reference Detector2D (detector2d.py:87-100):
 margin crop, min area, score >= 0.70; the class table {"cars": [2],
@@ -30,10 +45,12 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..slam.map import entry_device, to_torch
 from ..slam.tracking import _host_result, _prefetch_to_host
-from .layers import conv2d_same, he_normal, max_pool_same, resize_nearest, top_k, tree_map, true_div
+from ..utils import timing
+from .layers import conv2d_same, conv_transpose2d, he_normal, max_pool_same, resize_nearest, top_k, tree_map, true_div
 from .layers import params_from_jax  # noqa: F401  (JAX numpy pytree -> tensors)
 
 OBJECT_CLASS_TABLE = {"cars": [2], "chairs": [56, 57]}
@@ -52,9 +69,11 @@ class MaskRCNNConfig:
     # rpn
     anchor_scales: tuple = (8.0,)
     anchor_ratios: tuple = (0.5, 1.0, 2.0)
-    rpn_pre_nms: int = 512
-    rpn_post_nms: int = 128
+    rpn_pre_nms: int = 512           # candidates kept per level
+    rpn_post_nms: int = 128          # proposals kept after NMS
     rpn_nms_iou: float = 0.7
+    # False: suppress only within each level (mmdet's test_cfg.rpn)
+    rpn_nms_across_levels: bool = True
     # resnet+FPN compute dtype (the JAX package's inference default; its
     # trainer uses float32); the RPN / RoI heads and box math stay f32
     backbone_dtype: str = "bfloat16"
@@ -65,6 +84,10 @@ class MaskRCNNConfig:
     score_threshold: float = 0.70
     nms_iou: float = 0.5
     max_detections: int = 16
+    # the test pipeline: (long, short) edge limits of a keep-ratio resize
+    # (None: the image as it comes), and the padding's multiple
+    test_scale: tuple | None = None
+    size_divisor: int = 32
 
 
 # ---------------------------------------------------------------------------
@@ -115,7 +138,8 @@ def init_params(cfg: MaskRCNNConfig, gen: torch.Generator | None = None, device=
     p["cls"] = _fc(gen, cfg.fc_dim, cfg.num_classes + 1)
     p["reg"] = _fc(gen, cfg.fc_dim, cfg.num_classes * 4)
     p["mask_convs"] = [_conv(gen, c, c, 3) for _ in range(4)]
-    p["mask_deconv"] = _conv(gen, c, c, 3)
+    # a transposed convolution: (in, out, 2, 2), each input pixel its own 2x2 block
+    p["mask_deconv"] = {"w": he_normal(gen, (c, c, 2, 2), c), "b": torch.zeros(c)}
     p["mask_logits"] = _conv(gen, c, cfg.num_classes, 1)
     return tree_map(lambda t: t.to(device), p)
 
@@ -222,10 +246,14 @@ def greedy_suppress(iou: torch.Tensor, scores: torch.Tensor, k: int, iou_thresh:
     return torch.cat(picks), torch.cat(vals), torch.cat(oks)
 
 
-def greedy_nms(boxes, scores, k: int, iou_thresh: float, score_thresh: float = -float("inf")):
-    """Fixed-K greedy NMS: returns (boxes (k, 4), scores (k,), valid (k,))."""
-    j, s, ok = greedy_suppress(iou_matrix(boxes, boxes), scores, k, iou_thresh, -1e9,
-                               lambda s: s > score_thresh)
+def greedy_nms(boxes, scores, k: int, iou_thresh: float, score_thresh: float = -float("inf"), groups=None):
+    """Fixed-K greedy NMS: returns (boxes (k, 4), scores (k,), valid (k,)).
+    With `groups` (n,) a box suppresses only boxes of its own group."""
+    iou = iou_matrix(boxes, boxes)
+    if groups is not None:
+        iou = torch.where(groups[:, None] == groups[None, :], iou, 0.0)
+    timing.count("det2d_nms_rounds", k)
+    j, s, ok = greedy_suppress(iou, scores, k, iou_thresh, -1e9, lambda s: s > score_thresh)
     kb = torch.where(ok[:, None], boxes.index_select(0, j), 0.0)
     return kb, torch.where(ok, s, 0.0), ok.to(torch.float32)
 
@@ -306,17 +334,21 @@ def rpn_heads(params, feats) -> list:
 
 def rpn_select(level_outputs, level_hw, image_hw, cfg: MaskRCNNConfig):
     """The RPN's per-level top-k, delta decode and clip, then greedy NMS
-    over all levels -> ((rpn_post_nms, 4) proposals, validity)."""
+    over all levels, or within each level (`rpn_nms_across_levels`
+    False) -> ((rpn_post_nms, 4) proposals, validity). A round that finds
+    no live candidate gives an invalid proposal."""
     H, W = image_hw
-    all_boxes, all_scores = [], []
-    for (scores, deltas), hw, stride in zip(level_outputs, level_hw, RPN_STRIDES):
+    all_boxes, all_scores, all_levels = [], [], []
+    for lvl, ((scores, deltas), hw, stride) in enumerate(zip(level_outputs, level_hw, RPN_STRIDES)):
         anchors = _level_anchors(hw, stride, cfg, scores.device)
         top, idx = top_k(scores, min(cfg.rpn_pre_nms, scores.shape[0]))
         boxes = decode_deltas(deltas.index_select(0, idx), anchors.index_select(0, idx))
         all_boxes.append(_clip_boxes(boxes, H, W))
         all_scores.append(top)
+        all_levels.append(torch.full(top.shape, lvl, dtype=torch.int64, device=top.device))
+    groups = None if cfg.rpn_nms_across_levels else torch.cat(all_levels)
     proposals, _, prop_valid = greedy_nms(torch.cat(all_boxes), torch.cat(all_scores),
-                                          cfg.rpn_post_nms, cfg.rpn_nms_iou)
+                                          cfg.rpn_post_nms, cfg.rpn_nms_iou, score_thresh=-1e9, groups=groups)
     return proposals, prop_valid
 
 
@@ -357,24 +389,53 @@ def select_boxes(boxes, best_score, best_cls, cfg: MaskRCNNConfig):
 
 
 def mask_head(params, feats, kept_boxes, kept_labels, cfg: MaskRCNNConfig) -> torch.Tensor:
-    """RoIAlign (14x14, same level rule) -> 4 convs -> 2x nearest upsample
-    + conv -> per-class logits -> each box's own class (N, 28, 28)."""
+    """RoIAlign (14x14, same level rule) -> 4 convs -> 2x2 stride-2
+    transposed conv -> per-class logits -> each box's own class (N, 28, 28)."""
     h = roi_align_fpn(feats, kept_boxes, cfg.mask_roi_size)
     for cp in params["mask_convs"]:
         h = torch.relu(conv2d_same(h, cp))
-    s = h.shape[-1]
-    h = resize_nearest(h, (2 * s, 2 * s))
-    h = torch.relu(conv2d_same(h, params["mask_deconv"]))
+    h = torch.relu(conv_transpose2d(h, params["mask_deconv"]))
     mask_logits = conv2d_same(h, params["mask_logits"])          # (N, classes, 28, 28)
     idx = kept_labels[:, None, None, None].expand(-1, 1, *mask_logits.shape[-2:])
     return torch.gather(mask_logits, 1, idx)[:, 0]
 
 
+def input_size(image_hw, cfg: MaskRCNNConfig) -> tuple:
+    """The network's (h, w) for an image of `image_hw` before padding:
+    mmcv's keep-ratio rescale, the largest factor that keeps the long edge
+    within test_scale's long limit and the short edge within its short
+    one, sizes rounded half up; the image's own size without test_scale."""
+    h, w = image_hw
+    if cfg.test_scale is None:
+        return h, w
+    f = min(max(cfg.test_scale) / max(h, w), min(cfg.test_scale) / min(h, w))
+    return int(h * f + 0.5), int(w * f + 0.5)
+
+
+def prepare_image(img: torch.Tensor, cfg: MaskRCNNConfig) -> torch.Tensor:
+    """(H, W, 3) or (H, W) image -> the network's (1, 3, Hp, Wp) input:
+    with test_scale, a bilinear resize (half-pixel centres, no
+    antialiasing) to input_size, the ImageNet normalization, then zeros
+    below and right up to a multiple of size_divisor (mmdet's Resize,
+    Normalize, Pad); without it, normalize_image."""
+    if cfg.test_scale is None:
+        return normalize_image(img)
+    img = img.to(torch.float32)
+    x = img[None, None] if img.ndim == 2 else img.permute(2, 0, 1)[None]
+    h, w = input_size(img.shape[:2], cfg)
+    x = F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
+    x = normalize_image(x[0, 0] if img.ndim == 2 else x[0].permute(1, 2, 0))
+    d = cfg.size_divisor
+    return F.pad(x, (0, -(-w // d) * d - w, 0, -(-h // d) * d - h))
+
+
 def detect(params, img: torch.Tensor, image_hw: tuple, cfg: MaskRCNNConfig) -> dict:
     """(H, W, 3) uint8/float image tensor (or (H, W) grayscale, tiled on
     the device) -> dict(boxes (K, 4), scores (K,), labels (K,), valid (K,),
-    mask_logits (K, 28, 28)), all on img's device, with no host sync."""
-    feats = resnet_fpn(params, normalize_image(img), cfg)
+    mask_logits (K, 28, 28)), all on img's device, with no host sync.
+    Boxes are in the network's frame (input_size(image_hw, cfg))."""
+    image_hw = input_size(image_hw, cfg)
+    feats = resnet_fpn(params, prepare_image(img, cfg), cfg)
     proposals, prop_valid = rpn_propose(params, feats, image_hw, cfg)
     boxes, best_score, best_cls, _ = box_head(params, feats, proposals, prop_valid, image_hw, cfg)
     kept_boxes, kept_scores, kept_valid, kept_labels = select_boxes(boxes, best_score, best_cls, cfg)
@@ -442,21 +503,28 @@ class Detector2D:
         is taken as it is), enqueue the network and start pinned copies of
         its outputs, without waiting for the device. Returns a handle for
         collect()."""
-        if isinstance(img, torch.Tensor):
-            img = img.to(self.device)
-        else:
-            img = np.asarray(img)
-            img = to_torch(img.astype(np.float32) if img.dtype == np.float64 else img, self.device)
-        hw = tuple(img.shape[:2])
-        out = detect(self.params, img, hw, self.cfg)
-        host, event = _prefetch_to_host({"out": out})
-        self.dispatches += 1
+        with timing.span("det2d_dispatch"):
+            if isinstance(img, torch.Tensor):
+                img = img.to(self.device)
+            else:
+                img = np.asarray(img)
+                img = to_torch(img.astype(np.float32) if img.dtype == np.float64 else img, self.device)
+            hw = tuple(img.shape[:2])
+            out = detect(self.params, img, hw, self.cfg)
+            host, event = _prefetch_to_host({"out": out})
+            self.dispatches += 1
         return {"host": host, "event": event, "hw": hw}
 
     def collect(self, handle) -> dict:
+        """Wait for a dispatch's outputs: boxes scaled back to the input
+        image, the class and score filter, masks pasted at its size."""
         out = _host_result(handle["host"], handle["event"])["out"]
         boxes, scores, labels = out["boxes"], out["scores"], out["labels"]
+        h, w = handle["hw"]
+        nh, nw = input_size(handle["hw"], self.cfg)
+        boxes = boxes / np.asarray([nw / w, nh / h, nw / w, nh / h], np.float32)
         keep = (out["valid"] > 0) & np.isin(labels, self.class_ids) & (scores >= self.cfg.score_threshold)
+        timing.count("det2d_kept", int(keep.sum()))
         masks = paste_masks(boxes, out["mask_logits"], keep.astype(np.float32), handle["hw"])
         return {
             "pred_boxes": np.concatenate([boxes[keep], scores[keep, None]], axis=-1),
@@ -496,9 +564,18 @@ def _fold_bn(w, bn_w, bn_b, bn_mean, bn_var, eps=1e-5):
     return w * scale[:, None, None, None], (0.0 - bn_mean) * scale + bn_b
 
 
+# mmdet 2.x's R-CNN box coder (DeltaXYWHBBoxCoder of Shared2FCBBoxHead)
+RCNN_TARGET_STDS = (0.1, 0.1, 0.2, 0.2)
+
+
 def load_mmdet_checkpoint(path: str, cfg: MaskRCNNConfig = MaskRCNNConfig()) -> dict:
-    """Ingest an mmdet Mask R-CNN R50-FPN .pth by key convention -> a
-    parameter tree of CPU f32 tensors."""
+    """Ingest an mmdet 2.x Mask R-CNN R50-FPN .pth by key convention -> a
+    parameter tree of CPU f32 tensors. mmdet 2.x puts the background
+    class last in `fc_cls` and decodes `fc_reg` with target stds (0.1,
+    0.1, 0.2, 0.2): the classifier's background row moves first, as
+    `box_head` reads it, and the stds fold into `fc_reg`'s rows. The
+    mask head's upsample is a ConvTranspose2d; its (in, out, 2, 2) kernel
+    is taken as it is."""
     saved = torch.load(path, map_location="cpu", weights_only=False)
     sd = saved.get("state_dict", saved)
     sd = {k: (v.numpy() if hasattr(v, "numpy") else v) for k, v in sd.items()}
@@ -536,13 +613,14 @@ def load_mmdet_checkpoint(path: str, cfg: MaskRCNNConfig = MaskRCNNConfig()) -> 
     params["rpn_reg"] = conv_plain("rpn_head.rpn_reg")
     params["fc1"] = fc("roi_head.bbox_head.shared_fcs.0")
     params["fc2"] = fc("roi_head.bbox_head.shared_fcs.1")
-    params["cls"] = fc("roi_head.bbox_head.fc_cls")
-    params["reg"] = fc("roi_head.bbox_head.fc_reg")
+    cls = fc("roi_head.bbox_head.fc_cls")
+    order = [cfg.num_classes] + list(range(cfg.num_classes))
+    params["cls"] = {"w": cls["w"][:, order], "b": cls["b"][order]}
+    stds = torch.tensor(RCNN_TARGET_STDS * cfg.num_classes)
+    reg = fc("roi_head.bbox_head.fc_reg")
+    params["reg"] = {"w": reg["w"] * stds, "b": reg["b"] * stds}
     for i in range(4):
         params["mask_convs"][i] = conv_plain(f"roi_head.mask_head.convs.{i}.conv")
-    params["mask_deconv"] = {
-        "w": t(sd["roi_head.mask_head.upsample.weight"].transpose(1, 0, 2, 3)),
-        "b": t(sd["roi_head.mask_head.upsample.bias"]),
-    }
+    params["mask_deconv"] = conv_plain("roi_head.mask_head.upsample")
     params["mask_logits"] = conv_plain("roi_head.mask_head.conv_logits")
     return params

@@ -10,7 +10,7 @@ head with `paste_masks` reproduces the planted silhouettes (the
 make_prediction contract of the reference's detector2d.py:59-86).
 
 The training forward calls the functions inference calls (`resnet_fpn`,
-`rpn_level_outputs`, `roi_align_fpn`, `conv2d_same`, `resize_nearest`), in
+`rpn_level_outputs`, `roi_align_fpn`, `conv2d_same`, `conv_transpose2d`), in
 float32 (`small_config`). The JAX trainer selects each box's FPN level with
 a one-hot einsum and the port with a per-box gather; both send a box's
 gradient to its own level only.
@@ -39,7 +39,7 @@ import torch.nn.functional as F
 
 from ..slam.map import entry_device
 from . import maskrcnn as mr
-from .layers import Trainer, conv2d_same, leaves, resize_nearest, trainable, tree_map
+from .layers import Trainer, conv2d_same, conv_transpose2d, leaves, trainable, tree_map
 
 # Detector2D's labels come from argmax over softmax(cls_logits)[:, 1:], so
 # its "cars" filter (label 2, OBJECT_CLASS_TABLE) selects logit column 3
@@ -213,8 +213,7 @@ def loss_fn(params, img: torch.Tensor, targets: dict, image_hw, cfg: mr.MaskRCNN
     hm = mr.roi_align_fpn(feats, props, cfg.mask_roi_size)
     for cp in params["mask_convs"]:
         hm = torch.relu(conv2d_same(hm, cp))
-    s = hm.shape[-1]
-    hm = torch.relu(conv2d_same(resize_nearest(hm, (2 * s, 2 * s)), params["mask_deconv"]))
+    hm = torch.relu(conv_transpose2d(hm, params["mask_deconv"]))
     mask_logits = conv2d_same(hm, params["mask_logits"])[:, CAR_LOGIT_COL - 1]
     mask_bce = F.binary_cross_entropy_with_logits(mask_logits, targets["mask_targets"],
                                                   reduction="none").mean(dim=(1, 2))

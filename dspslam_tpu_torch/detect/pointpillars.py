@@ -7,8 +7,9 @@ config_pointpillars.py) rebuilt from scratch:
   crop + quantize (host) -> pillar assignment (device: sort, segment,
   densest-P top-k) -> PillarFeatureNet (linear + ReLU + max) -> scatter to
   the BEV canvas -> SECOND backbone (3 conv stages, bf16) -> SECONDFPN neck
-  (upsample + concat) -> Anchor3DHead -> sigmoid scores + delta decoding
-  -> exact rotated-IoU greedy NMS -> (N, 7) boxes
+  (transposed convolutions, kernel = stride, + concat) -> Anchor3DHead ->
+  sigmoid scores + delta decoding -> exact rotated-IoU greedy NMS -> (N, 7)
+  boxes
 
 Fixed-cap pillar tensors (max_pillars x max_points_per_pillar), a fixed-K
 NMS loop and no host sync between the point upload and the pinned copies
@@ -20,7 +21,13 @@ into the weights at load time (`load_mmdet3d_checkpoint`).
 
 Defaults mirror config_pointpillars.py: range [-20,-39.68,-3, 49.12,
 39.68, 1], voxel 0.16x0.16x4, car anchor (1.6, 3.9, 1.56) at z=-1.78
-with rotations {0, pi/2}, score threshold 0.1, 50 boxes max.
+with rotations {0, pi/2}, score threshold 0.1, 50 boxes max. mmdet3d's
+KITTI configs cap the pillars at max_voxels (16000, 40000) (train, test);
+the default cap stays the JAX package's 12000.
+
+The stage functions (`build_pillars_from_points`, `forward`,
+`select_detections`) are module attributes that `Detector3D.run` calls
+through the module: the benchmark's check taps them.
 """
 
 from __future__ import annotations
@@ -34,7 +41,8 @@ import torch
 from ..ops.rotated_iou import rotated_iou_matrix
 from ..slam.map import entry_device, to_torch
 from ..slam.tracking import _host_result, _prefetch_to_host
-from .layers import conv2d_same, he_normal, resize_nearest, top_k, tree_map, true_div
+from ..utils import timing
+from .layers import conv2d_same, conv_transpose2d, he_normal, top_k, tree_map, true_div
 from .layers import params_from_jax  # noqa: F401  (JAX numpy pytree -> tensors)
 from .maskrcnn import greedy_suppress
 
@@ -258,9 +266,10 @@ def build_pillars_from_points(sparse: dict, cfg: PointPillarsConfig) -> dict:
     seg_start = torch.cummax(torch.where(head, idx, 0), 0).values
     rank = idx - seg_start                                  # scan-order rank in pillar
 
-    counts = torch.zeros(C, dtype=torch.int64, device=dev).index_add_(0, g, live_s.to(torch.int64))
+    G = max(C, P)                                           # group slots (a short scan has fewer than P)
+    counts = torch.zeros(G, dtype=torch.int64, device=dev).index_add_(0, g, live_s.to(torch.int64))
     top_counts, top_g = top_k(counts, P)                   # densest pillars first
-    slot_of_g = torch.full((C,), -1, dtype=torch.int64, device=dev).scatter_(
+    slot_of_g = torch.full((G,), -1, dtype=torch.int64, device=dev).scatter_(
         0, top_g, torch.arange(P, dtype=torch.int64, device=dev))
     s = slot_of_g.index_select(0, g)                        # (C,) slot or -1
     sel_b = live_s & (s >= 0) & (rank < M)
@@ -268,7 +277,7 @@ def build_pillars_from_points(sparse: dict, cfg: PointPillarsConfig) -> dict:
     s_safe = torch.where(sel_b, s, P - 1)
     r_safe = torch.where(sel_b, rank, M - 1)
 
-    key_by_g = torch.zeros(C, dtype=torch.int64, device=dev).scatter_reduce_(
+    key_by_g = torch.zeros(G, dtype=torch.int64, device=dev).scatter_reduce_(
         0, g, torch.where(live_s, k_s, 0), reduce="amax")
     key_of_slot = key_by_g.index_select(0, top_g)
     pillar_mask = (top_counts > 0).to(torch.float32)
@@ -321,8 +330,9 @@ def init_params(cfg: PointPillarsConfig, gen: torch.Generator | None = None, dev
         block += [_conv_init(gen, cout, cout) for _ in range(n_layers)]
         params["blocks"].append(block)
         cin = cout
-    for cin_b, cout in zip(cfg.backbone_channels, cfg.fpn_channels):
-        params["deblocks"].append(_conv_init(gen, cin_b, cout))
+    for cin_b, cout, k in zip(cfg.backbone_channels, cfg.fpn_channels, cfg.fpn_upsample):
+        # a transposed convolution, kernel = stride: (in, out, k, k)
+        params["deblocks"].append({"w": he_normal(gen, (cin_b, cout, k, k), cin_b), "b": torch.zeros(cout)})
     feat = sum(cfg.fpn_channels)
     n_anchor = len(cfg.anchor_rotations)
     params["head_cls"] = _conv_init(gen, feat, n_anchor, k=1)
@@ -352,13 +362,11 @@ def forward(params: dict, pillars: dict, cfg: PointPillarsConfig):
     x = canvas.view(1, cfg.pfn_channels, ny, nx).to(torch.bfloat16)
 
     outs = []
-    for block, stride, factor, dp in zip(params["blocks"], cfg.backbone_strides,
-                                         cfg.fpn_upsample, params["deblocks"]):
+    for block, stride, dp in zip(params["blocks"], cfg.backbone_strides, params["deblocks"]):
         x = torch.relu(conv2d_same(x, block[0], stride))
         for layer in block[1:]:
             x = torch.relu(conv2d_same(x, layer))
-        up = x if factor == 1 else resize_nearest(x, (x.shape[-2] * factor, x.shape[-1] * factor))
-        outs.append(torch.relu(conv2d_same(up, dp)))
+        outs.append(torch.relu(conv_transpose2d(x, dp)))           # upsample by its kernel
     feat = torch.cat(outs, dim=1)                                       # (1, 384, H/2, W/2)
 
     cls = conv2d_same(feat, params["head_cls"])[0].to(torch.float32)
@@ -457,20 +465,24 @@ class Detector3D:
         else:
             sp = pillarize_sparse(velo_points, self.cfg)
             sp["s_idx"] = sp["s_idx"].astype(np.int32)    # torch has few uint16 ops
+        timing.count("det3d_points", int(sp["n_pts"]))
         return {k: to_torch(v, self.device) for k, v in sp.items()}
 
     def dispatch(self, velo_points: np.ndarray):
         """Async half of make_prediction: upload, enqueue the network and
         start pinned copies of the boxes, without waiting for the device.
         Returns a handle for collect()."""
-        out_boxes, _, valid = self.run(self.upload(velo_points))
-        self.dispatches += 1
-        return _prefetch_to_host({"out": {"boxes": out_boxes, "valid": valid}})
+        with timing.span("det3d_dispatch"):
+            out_boxes, _, valid = self.run(self.upload(velo_points))
+            self.dispatches += 1
+            return _prefetch_to_host({"out": {"boxes": out_boxes, "valid": valid}})
 
     @staticmethod
     def collect(handle) -> np.ndarray:
         out = _host_result(*handle)["out"]
-        return out["boxes"][out["valid"] > 0]
+        boxes = out["boxes"][out["valid"] > 0]
+        timing.count("det3d_kept", len(boxes))
+        return boxes
 
     def make_prediction(self, velo_points: np.ndarray) -> np.ndarray:
         """(N, 4) scan -> (K, 7) [x, y, z, w, l, h, yaw] car boxes."""
@@ -518,14 +530,12 @@ def load_mmdet3d_checkpoint(path: str, cfg: PointPillarsConfig = PointPillarsCon
         for li in range(cfg.backbone_layers[bi] + 1):
             wf, bf = conv_bn(sd[f"backbone.blocks.{bi}.{li * 3}.weight"], f"backbone.blocks.{bi}.{li * 3 + 1}")
             params["blocks"][bi][li] = {"w": t(wf), "b": t(bf)}
-    # neck deblocks (ConvTranspose2d + BN): the resize + conv substitute
-    # takes the kernel transposed into OIHW
+    # neck deblocks (ConvTranspose2d, kernel = stride, + BN): the (in, out,
+    # k, k) kernel as it is, BN folded along its output axis
     for di in range(len(cfg.fpn_channels)):
         w = sd[f"neck.deblocks.{di}.0.weight"]
-        if w.shape[0] != cfg.fpn_channels[di]:       # ConvTranspose (I, O, k, k)
-            w = w.transpose(1, 0, 2, 3)
-        wf, bf = conv_bn(w, f"neck.deblocks.{di}.1")
-        params["deblocks"][di] = {"w": t(wf), "b": t(bf)}
+        wf, bf = conv_bn(w.transpose(1, 0, 2, 3), f"neck.deblocks.{di}.1")
+        params["deblocks"][di] = {"w": t(wf.transpose(1, 0, 2, 3)), "b": t(bf)}
     for name, key in (("head_cls", "bbox_head.conv_cls"), ("head_box", "bbox_head.conv_reg"),
                       ("head_dir", "bbox_head.conv_dir_cls")):
         params[name] = {"w": t(sd[key + ".weight"]), "b": t(sd[key + ".bias"])}

@@ -11,15 +11,19 @@ detections are built from the online detectors' outputs, as the JAX
 package's KITTISequence builds them (JAX datasets/kitti.py:87-99) from the
 same detector outputs (within 1e-5), and the port's PointPillars boxes
 agree with JAX's PointPillars on the same weights within 2e-2 of the
-largest value (the bf16 backbone rounds differently); the CLI tracks all 3
-frames with both detectors dispatched once per keyframe.
+largest value (the bf16 backbone rounds differently; the deblocks' kernels
+repeat one phase, where the port's transposed convolutions and JAX's
+resize + convolution agree, tests/deconv_parity.py); the CLI tracks all 3
+frames with both detectors dispatched once per keyframe. A keyframe's
+online detection goes through `kitti.detect_online`, and the detection
+section's `detector_2d` / `detector_3d` blocks reach the networks.
 """
 
 import dataclasses
-import functools
 import json
 import os
 
+import deconv_parity
 import jax
 import numpy as np
 import pytest
@@ -49,11 +53,19 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+SMALL = {"detector_2d": dataclasses.asdict(CFG_2D), "detector_3d": dataclasses.asdict(CFG_3D)}
+
+
 @pytest.fixture
 def small_detectors(monkeypatch):
-    """KITTISequence builds its detectors at the small test configs."""
-    monkeypatch.setattr(kitti, "get_detectors",
-                        functools.partial(kitti.get_detectors, cfg_2d=CFG_2D, cfg_3d=CFG_3D))
+    """KITTISequence builds its detectors at the small test configs, given
+    as the detection section's blocks."""
+    orig = kitti.get_detectors
+
+    def small(det_cfg, *args, **kwargs):
+        return orig(det_cfg and dataclasses.replace(det_cfg, **SMALL), *args, **kwargs)
+
+    monkeypatch.setattr(kitti, "get_detectors", small)
 
 
 def _det_cfg(**kw):
@@ -71,14 +83,14 @@ def test_get_detectors_builds_both_on_the_cpu(tmp_path):
 
     assert kitti.get_detectors(None) == (None, None)
     assert kitti.get_detectors(_det_cfg(detect_online=False)) == (None, None)
-    d2, d3 = kitti.get_detectors(_det_cfg(), device="cpu", cfg_2d=CFG_2D, cfg_3d=CFG_3D)
+    d2, d3 = kitti.get_detectors(_det_cfg(**SMALL), device="cpu")
     assert isinstance(d2, tmr.Detector2D) and isinstance(d3, tpp.Detector3D)
     assert d2.device.type == d3.device.type == "cpu" and d2.class_ids == [2]
     w2, w3 = tmp_path / "m.pth", tmp_path / "p.pth"
     torch.save({"state_dict": _mmdet_state_dict(CFG_2D)}, w2)
     torch.save({"state_dict": _mmdet3d_state_dict(CFG_3D)}, w3)
-    d2, d3 = kitti.get_detectors(_det_cfg(weight_path_2d=str(w2), weight_path_3d=str(w3)), "chairs",
-                                 device="cpu", cfg_2d=CFG_2D, cfg_3d=CFG_3D)
+    d2, d3 = kitti.get_detectors(_det_cfg(weight_path_2d=str(w2), weight_path_3d=str(w3), **SMALL), "chairs",
+                                 device="cpu")
     assert d2.class_ids == [56, 57]
     for loaded, want in ((d2.params, tmr.load_mmdet_checkpoint(str(w2), CFG_2D)),
                          (d3.params, tpp.load_mmdet3d_checkpoint(str(w3), CFG_3D))):
@@ -112,13 +124,15 @@ def test_online_frame_detections_match_jax(small_detectors):
     seq = kitti.KITTISequence(FIXTURE, _det_cfg(), device="cpu")
     det2d, det3d = seq.detector_2d, seq.detector_3d
     assert isinstance(det2d, tmr.Detector2D) and det2d.cfg == CFG_2D and det3d.cfg == CFG_3D
+    port_np = deconv_parity.phase_constant(layers.tree_map(lambda t: t.numpy(), det3d.params))
+    det3d.params = tpp.params_from_jax(port_np)
     velo = seq.load_velodyne(0)
     img = io.load_image_rgb(os.path.join(FIXTURE, "image_2", "000000.png"))
     boxes_3d, pred_2d = det3d.make_prediction(velo), det2d.make_prediction(img)
     assert boxes_3d.ndim == 2 and boxes_3d.shape[1] == 7 and len(boxes_3d) >= 1
     # against JAX's PointPillars with the same weights: the bf16 backbone
     # rounds differently, so the boxes agree within 2e-2 of the largest value
-    jdet3d = jpp.Detector3D(params=layers.tree_map(lambda t: jax.numpy.asarray(t.numpy()), det3d.params),
+    jdet3d = jpp.Detector3D(params=jax.tree_util.tree_map(jax.numpy.asarray, deconv_parity.jax_tree(port_np)),
                             cfg=jpp.PointPillarsConfig(**{f.name: getattr(CFG_3D, f.name)
                                                           for f in dataclasses.fields(CFG_3D)}))
     jboxes = jdet3d.make_prediction(velo)
@@ -127,8 +141,11 @@ def test_online_frame_detections_match_jax(small_detectors):
     # the online branch builds the measurements as JAX's does from the same
     # detector outputs
     dets = seq.get_frame_detections(0, (160, 512))
-    jseq = jkitti.KITTISequence(FIXTURE, JDetectionConfig(**dataclasses.asdict(_det_cfg(detect_online=False))))
-    jseq.det_cfg = JDetectionConfig(**dataclasses.asdict(_det_cfg()))
+    def jax_cfg(cfg):           # the port's section has the detectors' blocks besides JAX's fields
+        return JDetectionConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(JDetectionConfig)})
+
+    jseq = jkitti.KITTISequence(FIXTURE, jax_cfg(_det_cfg(detect_online=False)))
+    jseq.det_cfg = jax_cfg(_det_cfg())
     jseq.detector_3d, jseq.detector_2d = Replay(boxes_3d), Replay(pred_2d)
     jdets = jseq.get_frame_detections(0, (160, 512))
     assert len(dets) == len(jdets) == len(boxes_3d)
@@ -136,6 +153,39 @@ def test_online_frame_detections_match_jax(small_detectors):
         np.testing.assert_allclose(a.T_cam_obj, b.T_cam_obj, atol=1e-5)
         np.testing.assert_allclose(a.surface_points, b.surface_points, atol=1e-5)
     assert det2d.dispatches == det3d.dispatches == 2
+
+
+def test_sequence_detects_through_the_shared_function(small_detectors, monkeypatch):
+    """KITTISequence's online half is `kitti.detect_online`, the function
+    the benchmark's detect cell calls: both detectors dispatched, then both
+    collected, the 3D boxes, 2D boxes and masks handed on."""
+    seq = kitti.KITTISequence(FIXTURE, _det_cfg(), device="cpu")
+    calls = []
+    orig = kitti.detect_online
+
+    def counted(det2d, det3d, image, velo):
+        calls.append((det2d, det3d, image.shape, velo.shape))
+        return orig(det2d, det3d, image, velo)
+
+    monkeypatch.setattr(kitti, "detect_online", counted)
+    seq.get_frame_detections(0, (160, 512))
+    assert len(calls) == 1 and calls[0][:2] == (seq.detector_2d, seq.detector_3d)
+    assert calls[0][2] == (160, 512, 3) and calls[0][3][1] == 4
+    assert seq.detector_2d.dispatches == seq.detector_3d.dispatches == 1
+    b3, b2, m2 = orig(seq.detector_2d, seq.detector_3d, np.zeros((160, 512), np.uint8), seq.load_velodyne(0))
+    assert b3.shape[1] == 7 and b2.shape[1] == 5 and m2.shape[1:] == (160, 512)
+
+
+def test_configured_detector_settings_reach_the_networks():
+    """The detection section's `detector_2d` / `detector_3d` blocks (lists
+    as tuples) are the networks' settings; a config without them keeps the
+    defaults."""
+    blocks = {"detector_2d": dataclasses.asdict(CFG_2D) | {"test_scale": [96, 64], "rpn_nms_across_levels": False},
+              "detector_3d": dataclasses.asdict(CFG_3D) | {"max_pillars": 512}}
+    d2, d3 = kitti.get_detectors(_det_cfg(**blocks), device="cpu")
+    assert d2.cfg == dataclasses.replace(CFG_2D, test_scale=(96, 64), rpn_nms_across_levels=False)
+    assert d3.cfg == dataclasses.replace(CFG_3D, max_pillars=512)
+    assert kitti.detector_configs(_det_cfg()) == (tmr.MaskRCNNConfig(), tpp.PointPillarsConfig())
 
 
 def test_dsp_slam_cli_with_online_detection(small_detectors, tmp_path):

@@ -1,7 +1,11 @@
 """The port's Mask R-CNN (dspslam_tpu_torch/detect/maskrcnn.py) against
 dspslam_tpu/detect/maskrcnn.py on the CPU, at tests/test_maskrcnn.py's small
 config, with the JAX package's seeded weights carried across through
-`params_from_jax` and numpy-seeded images.
+`params_from_jax` and numpy-seeded images. The mask head's upsample is a
+transposed convolution in the port and a resize + convolution in JAX (R12):
+its kernel repeats one phase (tests/deconv_parity.py), where the two agree,
+and tests/test_torch_detect_reference.py holds the general layer to the
+plain reference.
 
 Tolerances:
 - `_conv2d` (SAME padding, strides 1 and 2, k in {1, 3, 7}, even and odd
@@ -19,6 +23,7 @@ Tolerances:
 
 import dataclasses
 
+import deconv_parity
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -65,8 +70,8 @@ def numpy_params(cfg, seed=0):
 
 @pytest.fixture(scope="module")
 def params():
-    np_params = numpy_params(TCFG)
-    return jax.tree_util.tree_map(jnp.asarray, np_params), tmr.params_from_jax(np_params)
+    port, jax_np = deconv_parity.split(numpy_params(TCFG))
+    return jax.tree_util.tree_map(jnp.asarray, jax_np), tmr.params_from_jax(port)
 
 
 jax_resnet_fpn = jax.jit(jmr.resnet_fpn, static_argnums=2)
@@ -278,15 +283,29 @@ def _mmdet_state_dict(cfg, seed=0):
 
 
 def test_checkpoint_loader_matches_jax(tmp_path):
+    """Every leaf as JAX's loader gives it, but the three the port reads as
+    mmdet 2.x stores them: the classifier with its background row (last in
+    mmdet 2.x) moved first, the box regressor with the target stds folded
+    in, and the mask upsample's (in, out, 2, 2) transposed kernel as it is
+    (JAX transposes it for its resize + conv substitute, R12)."""
     path = tmp_path / "mrcnn.pth"
-    torch.save({"state_dict": _mmdet_state_dict(JCFG)}, path)
-    jp = jax.tree_util.tree_leaves(jmr.load_mmdet_checkpoint(str(path), JCFG))
+    sd = _mmdet_state_dict(JCFG)
+    torch.save({"state_dict": sd}, path)
+    jp = jax.tree_util.tree_flatten_with_path(jmr.load_mmdet_checkpoint(str(path), JCFG))[0]
     tp = layers.tree_map(lambda t: t.numpy(), tmr.load_mmdet_checkpoint(str(path), TCFG))
     tl = jax.tree_util.tree_leaves(tp)
     assert len(tl) == len(jp)
-    for a, b in zip(jp, tl):
-        np.testing.assert_array_equal(b, np.asarray(a))
-    # the loaded net runs, the 2x2 mask upsample weight through SAME padding
+    order = [JCFG.num_classes] + list(range(JCFG.num_classes))
+    stds = np.tile(np.asarray(tmr.RCNN_TARGET_STDS, np.float32), JCFG.num_classes)
+    want = {("cls", "w"): sd["roi_head.bbox_head.fc_cls.weight"].numpy().T[:, order],
+            ("cls", "b"): sd["roi_head.bbox_head.fc_cls.bias"].numpy()[order],
+            ("reg", "w"): sd["roi_head.bbox_head.fc_reg.weight"].numpy().T * stds,
+            ("reg", "b"): sd["roi_head.bbox_head.fc_reg.bias"].numpy() * stds,
+            ("mask_deconv", "w"): sd["roi_head.mask_head.upsample.weight"].numpy()}
+    for (path_j, a), b in zip(jp, tl):
+        key = (path_j[0].key, path_j[-1].key)
+        np.testing.assert_array_equal(b, want[key] if key in want else np.asarray(a), err_msg=str(key))
+    # the loaded net runs, the mask upsample as a 2x2 stride-2 transposed conv
     img = np.random.default_rng(3).uniform(0, 255, (96, 128, 3)).astype(np.float32)
     out = tmr.detect(tmr.load_mmdet_checkpoint(str(path), TCFG), torch.from_numpy(img), (96, 128), TCFG)
     assert np.isfinite(out["scores"].numpy()).all()

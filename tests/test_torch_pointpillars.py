@@ -19,10 +19,17 @@ Tolerances:
   decode_boxes within 1e-5 relative; select_detections on planted ties:
   equal;
 - the checkpoint loader: equal arrays.
+
+SECONDFPN's deblocks are transposed convolutions (kernel = stride) in the
+port and a resize + convolution in JAX (R12): their kernels repeat one
+phase (tests/deconv_parity.py), where the two agree, and
+tests/test_torch_detect_reference.py holds the general layer to the plain
+reference.
 """
 
 import dataclasses
 
+import deconv_parity
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -85,7 +92,8 @@ def params():
     rng = np.random.default_rng(4)
     np_params = layers.tree_map(lambda a: a + (rng.normal(size=a.shape) * 0.05).astype(np.float32)
                                 if a.ndim == 1 else a, np_params)
-    return jax.tree_util.tree_map(jnp.asarray, np_params), tpp.params_from_jax(np_params)
+    port, jax_np = deconv_parity.split(np_params)
+    return jax.tree_util.tree_map(jnp.asarray, jax_np), tpp.params_from_jax(port)
 
 
 def test_host_pillarization_equals_jax():
@@ -234,8 +242,8 @@ def _mmdet3d_state_dict(cfg, seed=0):
                                                                       generator=g)
             bn(f"backbone.blocks.{bi}.{li * 3 + 1}", cout)
         cin = cout
-    for di, (ci, co) in enumerate(zip(cfg.backbone_channels, cfg.fpn_channels)):
-        sd[f"neck.deblocks.{di}.0.weight"] = torch.randn(ci, co, 2, 2, generator=g)
+    for di, (ci, co, k) in enumerate(zip(cfg.backbone_channels, cfg.fpn_channels, cfg.fpn_upsample)):
+        sd[f"neck.deblocks.{di}.0.weight"] = torch.randn(ci, co, k, k, generator=g)    # ConvTranspose2d
         bn(f"neck.deblocks.{di}.1", co)
     feat = sum(cfg.fpn_channels)
     for key, cout in (("conv_cls", 2), ("conv_reg", 14), ("conv_dir_cls", 4)):
@@ -245,14 +253,26 @@ def _mmdet3d_state_dict(cfg, seed=0):
 
 
 def test_checkpoint_loader_matches_jax(tmp_path):
+    """Every leaf as JAX's loader gives it, but the deblocks' kernels: the
+    port takes mmdet3d's (in, out, k, k) ConvTranspose2d kernel as it is,
+    its BatchNorm folded along the output axis (JAX reshapes it for its
+    resize + conv substitute, R12)."""
     path = tmp_path / "pp.pth"
-    torch.save({"state_dict": _mmdet3d_state_dict(JCFG)}, path)
-    jl = jax.tree_util.tree_leaves(jpp.load_mmdet3d_checkpoint(str(path), JCFG))
+    sd = _mmdet3d_state_dict(JCFG)
+    torch.save({"state_dict": sd}, path)
+    jl = jax.tree_util.tree_flatten_with_path(jpp.load_mmdet3d_checkpoint(str(path), JCFG))[0]
     tl = jax.tree_util.tree_leaves(layers.tree_map(lambda t: t.numpy(), tpp.load_mmdet3d_checkpoint(str(path), TCFG)))
     assert len(tl) == len(jl)
-    for a, b in zip(jl, tl):
-        np.testing.assert_array_equal(b, np.asarray(a))
-    # the loaded detector runs, the 2x2 deblock weights through SAME padding
+    for (path_j, a), b in zip(jl, tl):
+        if deconv_parity.is_deconv(path_j):
+            di = path_j[1].idx
+            bn = {k: sd[f"neck.deblocks.{di}.1.{k}"].numpy() for k in ("weight", "running_var")}
+            scale = bn["weight"] / np.sqrt(bn["running_var"] + 1e-3)
+            want = sd[f"neck.deblocks.{di}.0.weight"].numpy() * scale[None, :, None, None]
+            np.testing.assert_allclose(b, want, rtol=1e-6, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(b, np.asarray(a))
+    # the loaded detector runs, the deblocks as transposed convs of kernel 1, 2, 4
     det = tpp.Detector3D(params=tpp.load_mmdet3d_checkpoint(str(path), TCFG), cfg=TCFG, device="cpu")
     assert det.make_prediction(car_scan()).shape[1] == 7
 

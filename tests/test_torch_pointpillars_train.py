@@ -22,12 +22,26 @@ within 1e-5 of their largest, the gradients within 1e-4 of their largest
 largest entry of any gradient),
 and after one step the running statistics within 1e-6 and the parameters
 within 1e-6 (those conv biases within 2 lr: Adam's first step moves a
-parameter by about lr times the sign of its gradient, here of noise); `fold_bn_state` within 1e-6 of JAX's fold. The three closed
+parameter by about lr times the sign of its gradient, here of noise; and
+the one weight these seeds give whose gradient is a cancelling sum below
+Adam's eps in both, head_box w[7, 30], where the step is lr * g / eps and
+so 2e5 times the gradient's rounding: both gradients there must stay below
+eps, and the step within 2 lr); `fold_bn_state` within 1e-6 of JAX's fold. The three closed
 loops of tests/test_detector_closed_loop.py run as `slow` tests, as there,
 and on the card in chip_smoke.py phase 12c.
+
+SECONDFPN's deblocks are transposed convolutions (kernel = stride) in the
+port and a resize + convolution in JAX (R12): their kernels repeat one
+phase (tests/deconv_parity.py), where the two forwards agree; their
+gradients are compared as the centre tap's (the sum over the phases), a
+step's update as the phases' mean against the centre tap (within 2 lr:
+Adam's first step moves each by about lr times the sign of its own
+gradient), and the folded kernel as its first phase.
 """
 
 import dataclasses
+
+import deconv_parity
 
 import jax
 import jax.numpy as jnp
@@ -48,6 +62,7 @@ JCFG = jpp.PointPillarsConfig(
     fpn_channels=(16, 16, 16), nms_pre=32, max_detections=8, score_threshold=0.3,
 )
 TCFG = tpp.PointPillarsConfig(**dataclasses.asdict(JCFG))
+ADAM_EPS = 1e-8         # optax.adam's and layers.Trainer's
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -82,7 +97,8 @@ def params():
     rng = np.random.default_rng(4)
     np_params = layers.tree_map(lambda a: a + (rng.normal(size=a.shape) * 0.05).astype(np.float32)
                                 if a.ndim == 1 else a, np_params)
-    return jax.tree_util.tree_map(jnp.asarray, np_params), np_params
+    port, jax_np = deconv_parity.split(np_params)
+    return jax.tree_util.tree_map(jnp.asarray, jax_np), port
 
 
 def _rel(a, b):
@@ -155,8 +171,11 @@ def test_loss_and_gradients_match_jax(params, scene):
     loss = tppt.loss_fn(tp, tpil, *[torch.from_numpy(t) for t in targets], TCFG)
     loss.backward()
     assert _rel(j_loss, loss.item()) <= 1e-2
-    for jg, tg in zip(jax.tree_util.tree_leaves(j_grads), jax.tree_util.tree_leaves(tp)):
-        a, b = np.asarray(jg, np.float64).ravel(), tg.grad.numpy().astype(np.float64).ravel()
+    for (path, jg), tg in zip(jax.tree_util.tree_flatten_with_path(j_grads)[0], jax.tree_util.tree_leaves(tp)):
+        a, b = np.asarray(jg, np.float64), tg.grad.numpy().astype(np.float64)
+        if deconv_parity.is_deconv(path):
+            a, b = a[:, :, 1, 1], deconv_parity.centre_grad(b)
+        a, b = a.ravel(), b.ravel()
         assert a @ b >= 0.98 * np.linalg.norm(a) * np.linalg.norm(b)
         if tg.ndim > 1:
             assert _rel(a, b) <= 1e-2
@@ -171,6 +190,10 @@ def _bn_states(np_params):
                                                      else rng.normal(0, 0.1, a.shape)).astype(np.float32)), j_bn)
     t_bn = layers.tree_map(lambda a: torch.from_numpy(np.array(a)), j_bn)
     return j_bn, t_bn
+
+
+def _pre_bn_bias(path) -> bool:
+    return path[-1].key == "b" and path[0].key in ("blocks", "deblocks")
 
 
 def test_bn_trainer_matches_jax(params, scene):
@@ -194,13 +217,23 @@ def test_bn_trainer_matches_jax(params, scene):
     # removes it): there both give rounding noise, held to the largest entry
     # of any gradient
     largest = max(float(np.abs(np.asarray(g)).max()) for g in jax.tree_util.tree_leaves(j_grads[0]))
+    below_eps = []      # (leaf, index) where both gradients are nonzero and below Adam's eps
     for (path, jg), tg in zip(jax.tree_util.tree_flatten_with_path(j_grads[0])[0], jax.tree_util.tree_leaves(tp)):
         # the PFN's bias is not in the training forward: JAX's gradient is 0
         g = torch.zeros_like(tg) if tg.grad is None else tg.grad
+        if not (deconv_parity.is_deconv(path) or _pre_bn_bias(path)):
+            a, b = np.asarray(jg), g.numpy()
+            tiny = (np.abs(a) < ADAM_EPS) & (np.abs(b) < ADAM_EPS) & ((a != 0) | (b != 0))
+            below_eps += [(jax.tree_util.keystr(path), tuple(map(int, i))) for i in np.argwhere(tiny)]
         if path[-1].key == "b" and path[0].key in ("blocks", "deblocks", "pfn"):
             assert np.abs(np.asarray(jg) - g.numpy()).max() <= 1e-5 * largest
+        elif deconv_parity.is_deconv(path):
+            assert _rel(np.asarray(jg)[:, :, 1, 1], deconv_parity.centre_grad(g.numpy())) <= 1e-4
         else:
             assert _rel(jg, g.numpy()) <= 1e-4
+    # a cancelling sum, ~1e-11 of the largest gradient in both, where the rest
+    # of its row is at least 1e-2
+    assert below_eps == [("['head_box']['w']", (7, 30, 0, 0))]
     for node_j, node_t in zip([j_grads[1]["pfn"], *sum(j_grads[1]["blocks"], []), *j_grads[1]["deblocks"]],
                               [t_bn["pfn"], *sum(t_bn["blocks"], []), *t_bn["deblocks"]]):
         for k in ("gamma", "beta"):
@@ -220,12 +253,24 @@ def test_bn_trainer_matches_jax(params, scene):
                        tuple(torch.from_numpy(t) for t in targets), TCFG)
     for a, b in zip(jax.tree_util.tree_leaves(j_bn2), jax.tree_util.tree_leaves(t_bn)):
         np.testing.assert_allclose(b.detach().numpy(), np.asarray(a), rtol=0, atol=1e-6)
-    for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(jp2)[0], jax.tree_util.tree_leaves(tp)):
-        # Adam's first step moves a parameter by about lr * sign(g): where g
+    for (path, a), b, jg in zip(jax.tree_util.tree_flatten_with_path(jp2)[0], jax.tree_util.tree_leaves(tp),
+                                jax.tree_util.tree_leaves(j_grads[0])):
+        # Adam's first step moves a parameter by lr * g / (|g| + eps): where g
         # is the rounding noise of an exact 0 (a conv bias before a BN) the
-        # sign is either, so those move by up to lr apart
-        zero_grad = path[-1].key == "b" and path[0].key in ("blocks", "deblocks")
-        np.testing.assert_allclose(b.detach().numpy(), np.asarray(a), rtol=0, atol=2.0 * 2e-3 if zero_grad else 1e-6)
+        # sign is either, so those move by up to lr apart; where both |g| are
+        # below eps the step is lr * g / eps, 2e5 times g's rounding
+        zero_grad = _pre_bn_bias(path)
+        if deconv_parity.is_deconv(path):
+            np.testing.assert_allclose(b.detach().numpy().mean(axis=(2, 3)).T, np.asarray(a)[:, :, 1, 1],
+                                       rtol=0, atol=2.0 * 2e-3)
+            continue
+        d = b.detach().numpy() - np.asarray(a)
+        if not zero_grad:
+            for leaf, i in below_eps:
+                if leaf == jax.tree_util.keystr(path):
+                    assert abs(d[i]) <= 2.0 * 2e-3
+                    d[i] = 0.0
+        np.testing.assert_allclose(d, 0.0, rtol=0, atol=2.0 * 2e-3 if zero_grad else 1e-6)
 
 
 def test_fold_bn_state_matches_jax(params):
@@ -233,10 +278,12 @@ def test_fold_bn_state_matches_jax(params):
     j_bn, t_bn = _bn_states(np_params)
     j_fold = jppt.fold_bn_state(jp, j_bn)
     t_fold = tppt.fold_bn_state(tpp.params_from_jax(np_params), t_bn)
-    j_leaves, t_leaves = jax.tree_util.tree_leaves(j_fold), jax.tree_util.tree_leaves(t_fold)
+    j_leaves, t_leaves = jax.tree_util.tree_flatten_with_path(j_fold)[0], jax.tree_util.tree_leaves(t_fold)
     assert len(j_leaves) == len(t_leaves)
-    for a, b in zip(j_leaves, t_leaves):
-        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=1e-6)
+    for (path, a), b in zip(j_leaves, t_leaves):
+        if deconv_parity.is_deconv(path):
+            a, b = np.asarray(a)[:, :, 1, 1], b.numpy()[:, :, 0, 0].T
+        np.testing.assert_allclose(np.asarray(b), np.asarray(a), rtol=0, atol=1e-6)
 
 
 def test_trainers_run_and_detector_takes_the_result():
@@ -302,9 +349,12 @@ def test_cross_scene_report_counts_recovered_boxes():
 def test_pointpillars_closed_loop_recovers_planted_boxes(seed):
     """tests/test_detector_closed_loop.py's PointPillars case with the
     port's trainer. Without regress_ignored (ROADMAP R9) seeds 1 and 3 left
-    a detection 2.85 m and 2.99 m from every planted box."""
+    a detection 2.85 m and 2.99 m from every planted box. 640 steps where
+    that file takes 320: the port's deblocks are SECONDFPN's transposed
+    convolutions (ROADMAP R12), which fit one scene more slowly
+    (`overfit_scene`)."""
     cfg = tppt.small_config()
-    params, scan, gt = tppt.overfit_scene(cfg, steps=320, seed=seed, device="cpu")
+    params, scan, gt = tppt.overfit_scene(cfg, steps=640, seed=seed, device="cpu")
     boxes = tpp.Detector3D(params=params, cfg=cfg, device="cpu").make_prediction(scan)
     rep = tppt.closed_loop_report(boxes, gt, cfg)
     assert rep["found"], f"{rep['detections']} detections for {len(gt)} gt, nearest {rep['dists']} m"

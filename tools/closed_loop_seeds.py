@@ -3,7 +3,9 @@ several seeds and print, per seed, what its assertions see (the trainers'
 `closed_loop_report`).
 
 The Mask R-CNN loop overfits one planted scene (600 steps) and the
-PointPillars loop one planted scan (320 steps); the report says whether
+PointPillars loop one planted scan (320 steps in the JAX package, 640 in
+the port, whose SECONDFPN deblocks are transposed convolutions); the
+report says whether
 every planted instance was found, whether a detection was spurious and, for
 PointPillars, the size errors. Either package's trainer can run (`--package
 jax` needs the JAX package and runs on the CPU; the port runs on `--device`,
@@ -68,7 +70,7 @@ def pointpillars_seed(args, seed: int) -> str:
     else:
         from dspslam_tpu_torch.detect.pointpillars import Detector3D
 
-        params, scan, gt = tppt.overfit_scene(cfg, steps=320, seed=seed, device=args.device,
+        params, scan, gt = tppt.overfit_scene(cfg, steps=640, seed=seed, device=args.device,
                                               regress_band=not args.no_regress_ignored)
         boxes = Detector3D(params=params, cfg=cfg, device=args.device).make_prediction(scan)
     rep = tppt.closed_loop_report(np.asarray(boxes), gt, cfg)
