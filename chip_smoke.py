@@ -1628,7 +1628,7 @@ def phase_long_loop(name: str) -> dict:
     mark = launch_mark()
     with mock.patch.object(loop_closing.LoopCloser, "_dispatch_global_ba", capture_dispatch), \
             mock.patch.object(pose_graph, "optimize_pose_graph", around_launches(spans["pose_graph"], capture_solve)), \
-            mock.patch.object(ba, "bundle_adjust", around_launches(spans["gba"], ba.bundle_adjust)):
+            mock.patch.object(ba, "global_bundle_adjust", around_launches(spans["gba"], ba.global_bundle_adjust)):
         t0 = time.perf_counter()
         rec = bench.long_loop(DEV)
         seconds = time.perf_counter() - t0

@@ -5,9 +5,10 @@ Port of dspslam_tpu/backend/ba.py (the reference's Optimizer::
 {Local,Global}JointBundleAdjustment over g2o, Optimizer_util.cc:36-771):
 
 * landmarks are marginalized with dense padded tensors: per-point 3x3
-  Hessians invert in a batch (`inv_ex`), the camera-point coupling W
-  assembles by scatter-add (`index_add_`) into a (K, P, 6, 3) block tensor, and the
-  reduced camera system S = Hcc - W Hpp^-1 W^T is one product;
+  Hessians invert in a batch (`inv_ex`; a closed-form Cholesky on the
+  card), the camera-point coupling W assembles by scatter-add
+  (`index_add_`) into a (K, P, 6, 3) block tensor, and the reduced camera
+  system S = Hcc - W Hpp^-1 W^T is one product;
 * object landmarks join the reduced system directly: each detection adds a
   6-dof edge e = log(T_co_meas^-1 . T_cw . T_wo) between its keyframe and
   object (EdgeSE3LieAlgebra, ObjectPoseGraph.h:57-89), information 1e3 I,
@@ -18,7 +19,15 @@ Port of dspslam_tpu/backend/ba.py (the reference's Optimizer::
   Optimizer_util.cc:588-663; `schedule`, global BA runs one round of 10)
   is a fixed loop with Levenberg-Marquardt
   acceptance decided on the device (`torch.where`): no `.item()`, no host
-  branch, so a solve is dispatched without waiting on the card.
+  branch, so a solve is dispatched without waiting on the card;
+* on a CUDA device the local BA replays CUDA graphs of its LM step
+  (`BAGraph`, one per shape): eagerly a step is a few hundred small
+  launches, whose enqueue, not the device, set the pace. The graphs solve
+  with elementwise ops (`ops/linalg.py`: `inv3` for the point blocks and
+  `cholesky_solve_spd` for the reduced system, SPD as a damped Schur
+  complement with identity rows for fixed variables); the CPU and the loop
+  closer's global BA (`global_bundle_adjust`) keep the library's
+  `inv_ex` and `solve_ex`.
 
 All observation slots are padded; masks make padded slots contribute zero.
 Callers fix at least the window's oldest keyframe (`kf_fixed`). The
@@ -30,7 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import lie
+from ..ops import lie, linalg
 from ..utils import timing
 
 CHI2_MONO = 5.991
@@ -117,21 +126,26 @@ def _flat(blocks: torch.Tensor) -> torch.Tensor:
     return blocks.permute(0, 2, 1, 3).reshape(K * a, L * b)
 
 
-def bundle_adjust(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr, obs_stereo,
-                  obs_inv_sigma2, obs_valid, intrinsics, damping: float = 1e-3,
-                  obj_state: dict | None = None, schedule: tuple = (5, 10)) -> dict:
-    """Windowed (joint) bundle adjustment; returns updated state + masks.
+OBJ_KEYS = ("poses", "fixed", "edge_kf", "edge_obj", "edge_Tco", "edge_valid")
 
-    kf_poses (K, 4, 4) T_cw; kf_fixed (K,) 1.0 = held; points (P, 3);
-    pt_valid (P,); obs_kf / obs_pt (O,) slots; obs_uvr (O, 3) [u, v,
-    u_right]; obs_stereo (O,) 1.0 where u_right is observed;
-    obs_inv_sigma2 (O,); obs_valid (O,); intrinsics (5,) [fx fy cx cy bf].
-    obj_state (optional) enables the joint camera-object problem: {poses
-    (M, 4, 4) T_wo, fixed (M,), edge_kf (Q,), edge_obj (Q,), edge_Tco
-    (Q, 4, 4), edge_valid (Q,)}. schedule: GN iterations per round, chi2
-    outliers dropped between rounds.
-    Returns dict(kf_poses, points, obs_inlier, obj_poses, obj_edge_inlier).
-    """
+
+def _inv_ex(A):
+    return torch.linalg.inv_ex(A)[0]
+
+
+def _solve_ex(H, b):
+    return torch.linalg.solve_ex(H, b)[0]
+
+
+def _lm(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr, obs_stereo, obs_inv_sigma2,
+        obs_valid, intrinsics, damping, obj_state, card):
+    """The LM of one window as three functions of the carry (kf_T, pts,
+    inlier, obj_T, edge_inlier, lam, cost): `init()` makes it from the
+    inputs, `gn_step(carry)` takes one damped Gauss-Newton step and decides
+    its acceptance on the device, `reclassify(carry)` drops the chi2
+    outliers between rounds. `card` picks the solves: `linalg.inv3` and
+    `linalg.cholesky_solve_spd`, elementwise, which a CUDA graph holds
+    without a host wait; else the library's `inv_ex` and `solve_ex`."""
     dev, dt = kf_poses.device, kf_poses.dtype
     K, P = kf_poses.shape[0], points.shape[0]
     obs_kf, obs_pt = obs_kf.long(), obs_pt.long()
@@ -146,6 +160,7 @@ def bundle_adjust(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr,
     chi2_th = torch.where(obs_stereo > 0, CHI2_STEREO, CHI2_MONO)
     eye3 = torch.eye(3, dtype=dt, device=dev)
     eye6 = torch.eye(6, dtype=dt, device=dev)
+    inv3, solve = (linalg.inv3, linalg.cholesky_solve_spd) if card else (_inv_ex, _solve_ex)
 
     def residuals(kf_T, pts):
         return _point_residuals(kf_T, pts, obs_kf, obs_pt, obs_uvr, obs_stereo, intrinsics)
@@ -184,7 +199,7 @@ def bundle_adjust(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr,
         # Marquardt scaling (lam * diag(H)); the absolute floor keeps
         # padded point blocks invertible
         Hpp = Hpp + torch.diag_embed(lam * torch.diagonal(Hpp, dim1=1, dim2=2)) + 1e-6 * eye3
-        Hpp_inv = torch.linalg.inv_ex(Hpp)[0] * pt_valid[:, None, None]
+        Hpp_inv = inv3(Hpp) * pt_valid[:, None, None]
 
         # reduced camera system
         S_diag = Hcc + torch.diag_embed(lam * torch.diagonal(Hcc, dim1=1, dim2=2)) + 1e-6 * eye6
@@ -218,7 +233,7 @@ def bundle_adjust(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr,
         # clamp fixed variables: identity rows / columns, zero rhs
         free_diag = free[:, None].expand(-1, 6).reshape(-1)
         H_full = H_full * (free_diag[:, None] * free_diag[None, :]) + torch.diag(1.0 - free_diag)
-        dx = torch.linalg.solve_ex(H_full, rhs_full * free_diag)[0]
+        dx = solve(H_full, rhs_full * free_diag)
         # trust region: bounded, finite increments
         dx = torch.clamp(torch.where(torch.isfinite(dx), dx, 0.0), -0.5, 0.5)
         dx_c = dx[: 6 * K].reshape(K, 6)
@@ -251,17 +266,172 @@ def bundle_adjust(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr,
         # the acceptance baseline is re-evaluated under the new inlier set
         return kf_T, pts, inlier, obj_T, edge_inlier, lam, robust_cost(kf_T, pts, obj_T, inlier, edge_inlier)
 
-    obj_T0 = obj_state["poses"] if has_obj else torch.zeros((0, 4, 4), dtype=dt, device=dev)
-    edge_i0 = edge_valid0 if has_obj else torch.zeros((0,), dtype=dt, device=dev)
-    carry = (kf_poses, points, obs_valid, obj_T0, edge_i0, torch.full((), damping, dtype=dt, device=dev),
-             robust_cost(kf_poses, points, obj_T0, obs_valid, edge_i0))
+    def init():
+        obj_T0 = obj_state["poses"] if has_obj else torch.zeros((0, 4, 4), dtype=dt, device=dev)
+        edge_i0 = edge_valid0 if has_obj else torch.zeros((0,), dtype=dt, device=dev)
+        return (kf_poses, points, obs_valid, obj_T0, edge_i0, torch.full((), damping, dtype=dt, device=dev),
+                robust_cost(kf_poses, points, obj_T0, obs_valid, edge_i0))
+
+    return init, gn_step, reclassify
+
+
+def _rounds(schedule, step, reclassify, carry=None):
+    """The schedule's rounds over the carry: `schedule[r]` LM steps in round
+    r, each in a `ba_lm_step` span, and a reclassification (span
+    `ba_reclassify`) between two rounds."""
     for round_idx, n_iters in enumerate(schedule):
         for _ in range(n_iters):
             with timing.span("ba_lm_step"):
-                carry = gn_step(carry)
+                carry = step(carry)
         if round_idx < len(schedule) - 1:
             with timing.span("ba_reclassify"):
                 carry = reclassify(carry)
+    return carry
+
+
+def _outputs(carry):
     kf_T, pts, inlier, obj_T, edge_inlier = carry[:5]
     return {"kf_poses": kf_T, "points": pts, "obs_inlier": inlier, "obj_poses": obj_T,
             "obj_edge_inlier": edge_inlier}
+
+
+def _adjust(args, damping, obj_state, schedule, card):
+    """The solve run eagerly: the ten tensors and intrinsics `args`, with
+    the card's solves or the library's (`card`)."""
+    init, gn_step, reclassify = _lm(*args, damping, obj_state, card)
+    return _outputs(_rounds(schedule, gn_step, reclassify, init()))
+
+
+class BAGraph:
+    """Static buffers of one key of `bundle_adjust` and the three CUDA graphs
+    that read and write them: `init` (the carry from the static inputs),
+    `step` (one LM step, its carry copied into the static carry at its end)
+    and `reclassify` (likewise). Each graph builds the problem from the
+    static inputs inside itself, so a replay reads the solve's own inputs.
+
+    A call copies its inputs into the static inputs. The first call then
+    runs the three bodies once each, eagerly, on a side stream: the warm-up
+    that capture needs (the libraries set up their handles and workspaces
+    there). It captures the three graphs on that stream (counted as
+    `ba_graph_capture`) and replays them; every later call replays them
+    (counted as `ba_graph_replay`). A solve is 1 + sum(schedule) +
+    len(schedule) - 1 replays, each step's in its own `ba_lm_step` span.
+    Each call returns clones of the static outputs: the mapper's read-back
+    and the benchmark's tap keep a solve's output while the next solve
+    overwrites the static carry."""
+
+    def __init__(self, args, obj_state, damping, schedule):
+        device = args[0].device
+        self.args = tuple(torch.empty(x.shape, dtype=x.dtype, device=device) for x in args)
+        self.obj_state = None if obj_state is None else {
+            k: torch.empty(obj_state[k].shape, dtype=obj_state[k].dtype, device=device) for k in OBJ_KEYS}
+        self.damping, self.schedule = damping, schedule
+        self.carry = None
+        self.graphs = None
+
+    def load(self, args, obj_state):
+        for dst, src in zip(self.args, args):
+            dst.copy_(src, non_blocking=True)
+        if obj_state is not None:
+            for k, dst in self.obj_state.items():
+                dst.copy_(obj_state[k], non_blocking=True)
+
+    def _fns(self):
+        """`_lm`'s three functions of the static inputs, built inside the
+        graph that calls them."""
+        return _lm(*self.args, self.damping, self.obj_state, card=True)
+
+    def _store(self, carry):
+        for dst, src in zip(self.carry, carry):
+            if dst is not src:
+                dst.copy_(src)
+
+    def _init(self):
+        self._store(self._fns()[0]())
+
+    def _step(self):
+        self._store(self._fns()[1](self.carry))
+
+    def _reclassify(self):
+        self._store(self._fns()[2](self.carry))
+
+    def _capture(self):
+        current = torch.cuda.current_stream()
+        stream = torch.cuda.Stream(current.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            self.carry = tuple(t.clone() for t in self._fns()[0]())
+            self._step()
+            self._reclassify()
+        current.wait_stream(stream)
+        graphs = []
+        for body in (self._init, self._step, self._reclassify):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                body()
+            graphs.append(graph)
+        self.graphs = tuple(graphs)
+
+    def __call__(self, args, obj_state):
+        self.load(args, obj_state)
+        if self.graphs is None:
+            self._capture()
+            timing.count("ba_graph_capture")
+        else:
+            timing.count("ba_graph_replay")
+        init, step, reclassify = self.graphs
+        init.replay()
+        _rounds(self.schedule, lambda _: step.replay(), lambda _: reclassify.replay())
+        return _outputs(tuple(t.clone() for t in self.carry[:5]))
+
+
+_GRAPHS: dict = {}   # key -> BAGraph, shared by every local mapper of the process
+
+
+def bundle_adjust(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr, obs_stereo,
+                  obs_inv_sigma2, obs_valid, intrinsics, damping: float = 1e-3,
+                  obj_state: dict | None = None, schedule: tuple = (5, 10)) -> dict:
+    """Windowed (joint) bundle adjustment; returns updated state + masks.
+
+    kf_poses (K, 4, 4) T_cw; kf_fixed (K,) 1.0 = held; points (P, 3);
+    pt_valid (P,); obs_kf / obs_pt (O,) slots; obs_uvr (O, 3) [u, v,
+    u_right]; obs_stereo (O,) 1.0 where u_right is observed;
+    obs_inv_sigma2 (O,); obs_valid (O,); intrinsics (5,) [fx fy cx cy bf].
+    obj_state (optional) enables the joint camera-object problem: {poses
+    (M, 4, 4) T_wo, fixed (M,), edge_kf (Q,), edge_obj (Q,), edge_Tco
+    (Q, 4, 4), edge_valid (Q,)}. schedule: GN iterations per round, chi2
+    outliers dropped between rounds.
+    Returns dict(kf_poses, points, obs_inlier, obj_poses, obj_edge_inlier),
+    tensors of the call's own.
+
+    On a CUDA device the solve goes through the process's `BAGraph` of its
+    key: the device, the TF32 switch, damping and schedule, whether
+    obj_state is given, and each input's shape and dtype, all of which a
+    graph bakes in. It runs eagerly with the library's solves on the CPU,
+    and eagerly with the card's while the current stream is capturing (an
+    outer graph holds it).
+    """
+    args = (kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr, obs_stereo, obs_inv_sigma2,
+            obs_valid, intrinsics)
+    damping, schedule = float(damping), tuple(schedule)
+    if not kf_poses.is_cuda or torch.cuda.is_current_stream_capturing():
+        return _adjust(args, damping, obj_state, schedule, card=kf_poses.is_cuda)
+    tensors = args + (() if obj_state is None else tuple(obj_state[k] for k in OBJ_KEYS))
+    key = (kf_poses.device, torch.backends.cuda.matmul.allow_tf32, damping, schedule, obj_state is not None,
+           tuple((tuple(x.shape), x.dtype) for x in tensors))
+    graph = _GRAPHS.get(key)
+    if graph is None:
+        graph = _GRAPHS[key] = BAGraph(args, obj_state, damping, schedule)
+    return graph(args, obj_state)
+
+
+def global_bundle_adjust(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr, obs_stereo,
+                         obs_inv_sigma2, obs_valid, intrinsics, damping: float = 1e-3,
+                         obj_state: dict | None = None, schedule: tuple = (10,)) -> dict:
+    """The loop closer's global BA: `bundle_adjust`'s solve, run eagerly with
+    the library's solves on every device. It runs once per loop closure at
+    shapes of its own (64 keyframes, float64), so a graph of it would be
+    captured and hardly ever replayed."""
+    args = (kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr, obs_stereo, obs_inv_sigma2,
+            obs_valid, intrinsics)
+    return _adjust(args, float(damping), obj_state, tuple(schedule), card=False)

@@ -874,7 +874,7 @@ class LoopCloser:
                     self._upload_gba(obj_poses, obj_fixed, edge_kf, edge_obj, edge_Tco, edge_valid),
                 ))
 
-        out = ba.bundle_adjust(
+        out = ba.global_bundle_adjust(
             *self._upload_gba(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs,
                               obs_stereo, obs_is2, obs_valid),
             self.intrinsics.to(GBA_DTYPE), 1e-3, obj_state, schedule=(10,),

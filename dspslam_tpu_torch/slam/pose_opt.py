@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import lie
+from ..ops.linalg import cholesky_solve_spd
 from ..utils import timing
 
 CHI2_MONO = 5.991
@@ -58,29 +59,6 @@ def _residuals_and_jac(T_cw, pts_w, obs, stereo_mask, fx, fy, cx, cy, bf):
     dpix_dpc = torch.stack([du, dv, dur * stereo_mask[:, None]], dim=-2)   # (N, 3, 3)
     J = dpix_dpc @ lie.points_to_pose_jacobian_se3(pc)    # (N, 3, 6)
     return res, J
-
-
-def cholesky_solve_spd(H, b):
-    """x = H^-1 b for a symmetric positive definite (n, n) H, in elementwise
-    ops only: a right-looking Cholesky of the bordered matrix [H; b^T],
-    whose n columns come out as [L; y^T] with L L^T = H and L y = b, then
-    L^T x = y backwards. No library solver and no host sync: on an H100,
-    cuSOLVER's 6 x 6 solves (`solve_ex`, `cholesky_ex` + `cholesky_solve`)
-    inside a CUDA graph held the host for the whole replay."""
-    n = H.shape[-1]
-    M = torch.cat([H, b[None]], 0)                                   # (n + 1, n)
-    lower = torch.ones(n + 1, n, dtype=torch.bool, device=H.device).tril()
-    cols = []
-    for k in range(n):
-        col = M[:, k] * (lower[:, k] * torch.rsqrt(M[k, k]))
-        M = torch.addr(M, col, col[:n], alpha=-1)
-        cols.append(col)
-    L = torch.stack(cols, 1)
-    r, xs = L[n], [None] * n
-    for k in reversed(range(n)):
-        xs[k] = r[k] / L[k, k]
-        r = r - L[k] * xs[k]
-    return torch.stack(xs)
 
 
 def _solve(H, b):

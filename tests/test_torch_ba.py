@@ -18,6 +18,7 @@ from dspslam_tpu.backend import ba as jba
 from dspslam_tpu.ops import lie as jlie
 from dspslam_tpu_torch.backend import ba as tba
 from dspslam_tpu_torch.ops import lie as tlie
+from dspslam_tpu_torch.ops import linalg
 
 FX, FY, CX, CY, BF = 500.0, 500.0, 320.0, 240.0, 200.0
 INTR = np.asarray([FX, FY, CX, CY, BF], np.float32)
@@ -70,11 +71,15 @@ def pad_problem(poses, pts, k, p, uvr, K, P, O):
     return kf_poses, points, pt_valid, obs_kf, obs_pt, obs_uvr, obs_valid
 
 
+def ba_args(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr, obs_stereo, obs_valid):
+    """bundle_adjust's ten tensors and intrinsics, as numpy arrays."""
+    return [kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr, obs_stereo,
+            np.ones(len(obs_kf), np.float32), obs_valid, INTR]
+
+
 def run_both(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr, obs_stereo,
              obs_valid, obj_state=None, schedule=None):
-    O = len(obs_kf)
-    args = [kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr, obs_stereo,
-            np.ones(O, np.float32), obs_valid, INTR]
+    args = ba_args(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr, obs_stereo, obs_valid)
     kw = {} if schedule is None else {"schedule": schedule}
     j = jba.bundle_adjust(*[jnp.asarray(a) for a in args], 1e-3,
                           None if obj_state is None else {k: jnp.asarray(v) for k, v in obj_state.items()},
@@ -150,8 +155,9 @@ def test_refines_noisy_geometry(noisy_geometry):
         np.median(np.linalg.norm(pts_init - pts_true, axis=-1))
 
 
-@pytest.fixture(scope="module")
-def joint_problem():
+def _joint_problem():
+    """Four keyframes and 80 points, one free object seen by each keyframe,
+    a fixed padded object, and a fifth edge with a gross measurement."""
     rng = np.random.default_rng(7)
     pts_true, poses_true = make_world(rng, 80, 4)
     k, p, uvr = project_all(rng, poses_true, pts_true, 0.2)
@@ -179,8 +185,14 @@ def joint_problem():
     obj_state["edge_kf"][4] = 2
     obj_state["edge_Tco"][4] = _exp([2.0, 0.0, -3.0, 0.5, 0.0, 0.0]) @ poses_true[2] @ T_wo_true
     obj_state["edge_valid"][4] = 1
-    j, t = run_both(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr,
-                    np.ones(O, np.float32), obs_valid, obj_state)
+    return (kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr, np.ones(O, np.float32),
+            obs_valid), obj_state, T_wo_true
+
+
+@pytest.fixture(scope="module")
+def joint_problem():
+    problem, obj_state, T_wo_true = _joint_problem()
+    j, t = run_both(*problem, obj_state)
     return j, t, T_wo_true
 
 
@@ -227,3 +239,82 @@ def test_object_edge_residual_zero_at_truth():
     rj = jba._object_residual_single(jnp.asarray(T_cw.numpy()), jnp.asarray(T_wo.numpy()),
                                      jnp.asarray((T_cw @ T_wo).numpy()))
     np.testing.assert_allclose(r.numpy(), np.asarray(rj), atol=1e-6)
+
+
+def _torch(problem, obj_state=None, dtype=torch.float32):
+    """bundle_adjust's arguments as CPU tensors, the floats in `dtype`."""
+    t = [torch.from_numpy(a) for a in ba_args(*problem)]
+    t = [x.to(dtype) if x.is_floating_point() else x for x in t]
+    obj = None if obj_state is None else {
+        k: torch.from_numpy(v).to(dtype) if v.dtype == np.float32 else torch.from_numpy(v)
+        for k, v in obj_state.items()}
+    return t, obj
+
+
+@pytest.mark.parametrize("case", ["noisy_geometry", "joint_problem"])
+def test_card_solves_match_library_solves(case, request):
+    """The LM body with the card's solves (closed-form 3 x 3 inverses and
+    `cholesky_solve_spd`, which the CUDA graphs hold), run here on the CPU,
+    against `bundle_adjust`'s library solves on the same window, within the
+    tolerances the port keeps against JAX."""
+    t = request.getfixturevalue(case)[1]
+    problem, obj_state = (_noisy_problem()[0], None) if case == "noisy_geometry" else _joint_problem()[:2]
+    args, obj = _torch(problem, obj_state)
+    card = {k: v.numpy() for k, v in tba._adjust(args, 1e-3, obj, (5, 10), card=True).items()}
+    keys = ("kf_poses",) if obj is None else ("kf_poses", "obj_poses")
+    for key in keys:
+        assert np.abs(card[key] - t[key]).max() <= 1e-4, key
+    assert np.abs(card["points"] - t["points"]).max() <= 1e-3
+    np.testing.assert_array_equal(card["obs_inlier"], t["obs_inlier"])
+    np.testing.assert_array_equal(card["obj_edge_inlier"], t["obj_edge_inlier"])
+
+
+def test_inv3_matches_inv_ex():
+    """The closed-form 3 x 3 inverse against `inv_ex` on damped point
+    Hessians as BA builds them: stereo (rank 3) and mono (rank 2) blocks
+    with Marquardt damping 1e-7 to 1e2 and the 1e-6 floor, and padded slots
+    (zero Hessians) that `pt_valid` zeroes after the inverse. Both are
+    backward stable, so each block's two inverses differ by a few f32
+    roundings times the block's condition number; blocks singular to f32
+    stay finite."""
+    rng = np.random.default_rng(11)
+    n = 4096
+    J = rng.normal(0, 30.0, (n, 3, 3)) * rng.uniform(0.1, 3.0, (n, 1, 1))
+    J[::2, 2] = 0.0                                              # mono: the third row unobserved
+    H = torch.from_numpy(np.einsum("nij,nik->njk", J, J).astype(np.float32))
+    valid = torch.from_numpy((rng.uniform(size=n) < 0.7).astype(np.float32))
+    H = H * valid[:, None, None]
+    lam = 10.0 ** rng.uniform(-7, 2, n).astype(np.float32)
+    H = H + torch.diag_embed(torch.from_numpy(lam)[:, None] * torch.diagonal(H, dim1=1, dim2=2)) \
+        + 1e-6 * torch.eye(3)
+    ref = torch.linalg.inv_ex(H)[0] * valid[:, None, None]
+    out = linalg.inv3(H) * valid[:, None, None]
+    assert torch.isfinite(out).all()
+    assert torch.equal(out[valid == 0], torch.zeros_like(out[valid == 0]))
+    live = valid > 0
+    kappa = torch.from_numpy(np.linalg.cond(H[live].double().numpy()))
+    gap = ((out - ref)[live].flatten(1).norm(dim=1) / ref[live].flatten(1).norm(dim=1)).double()
+    assert (gap <= 4 * torch.finfo(torch.float32).eps * kappa).all()
+    assert (kappa > 1e7).sum() > 100                             # singular to f32 ones are in the batch
+
+
+def test_global_ba_runs_library_solves_in_float64(monkeypatch):
+    """The loop closer's entry, `global_bundle_adjust`, runs the eager body
+    with the library's solves (never the card's, on any device) in the
+    caller's float64, and equals `bundle_adjust` on the CPU."""
+    def card_solve(*_):
+        raise AssertionError("the global BA took a card solve")
+
+    seen = []
+    real_solve, real_inv = torch.linalg.solve_ex, torch.linalg.inv_ex
+    monkeypatch.setattr(linalg, "inv3", card_solve)
+    monkeypatch.setattr(linalg, "cholesky_solve_spd", card_solve)
+    monkeypatch.setattr(torch.linalg, "solve_ex", lambda H, b: seen.append(("solve", H.dtype)) or real_solve(H, b))
+    monkeypatch.setattr(torch.linalg, "inv_ex", lambda A: seen.append(("inv", A.dtype)) or real_inv(A))
+    args, _ = _torch(_noisy_problem()[0], dtype=torch.float64)
+    out = tba.global_bundle_adjust(*args, 1e-3, None)
+    assert sorted(set(seen)) == [("inv", torch.float64), ("solve", torch.float64)]
+    assert len(seen) == 2 * 10                                   # one round of 10 steps
+    ref = tba.bundle_adjust(*args, 1e-3, None, schedule=(10,))
+    assert all(torch.equal(out[k], ref[k]) for k in out)
+    assert out["kf_poses"].dtype == torch.float64 and not tba._GRAPHS

@@ -192,13 +192,13 @@ def test_global_ba_solves_in_float64(monkeypatch):
     from ~6.2 cm to 8-20 cm; the solve runs in float64 (the reference's g2o
     solves in double) and the map keeps f32 poses."""
     seen = []
-    real = tlc.ba.bundle_adjust
+    real = tlc.ba.global_bundle_adjust
 
     def spy(kf_poses, *a, **kw):
         seen.append(kf_poses.dtype)
         return real(kf_poses, *a, **kw)
 
-    monkeypatch.setattr(tlc.ba, "bundle_adjust", spy)
+    monkeypatch.setattr(tlc.ba, "global_bundle_adjust", spy)
     lmk_pos, lmk_desc = _cell_world(5)
     xs = list(range(0, 11)) + list(range(9, -1, -1))
     _sync_ids()
