@@ -20,8 +20,8 @@ Port of dspslam_tpu/backend/ba.py (the reference's Optimizer::
   is a fixed loop with Levenberg-Marquardt
   acceptance decided on the device (`torch.where`): no `.item()`, no host
   branch, so a solve is dispatched without waiting on the card;
-* on a CUDA device the local BA replays CUDA graphs of its LM step
-  (`BAGraph`, one per shape): eagerly a step is a few hundred small
+* on a CUDA device the local BA replays CUDA graphs of its LM step, one
+  set per shape (`ops/graphs.py`): eagerly a step is a few hundred small
   launches, whose enqueue, not the device, set the pace. The graphs solve
   with elementwise ops (`ops/linalg.py`: `inv3` for the point blocks and
   `cholesky_solve_spd` for the reduced system, SPD as a damped Schur
@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import lie, linalg
+from ..ops import graphs, lie, linalg
 from ..utils import timing
 
 CHI2_MONO = 5.991
@@ -302,90 +302,18 @@ def _adjust(args, damping, obj_state, schedule, card):
     return _outputs(_rounds(schedule, gn_step, reclassify, init()))
 
 
-class BAGraph:
-    """Static buffers of one key of `bundle_adjust` and the three CUDA graphs
-    that read and write them: `init` (the carry from the static inputs),
-    `step` (one LM step, its carry copied into the static carry at its end)
-    and `reclassify` (likewise). Each graph builds the problem from the
-    static inputs inside itself, so a replay reads the solve's own inputs.
+def _bodies(damping):
+    """Local BA's graph bodies: init, one LM step, reclassify. Each builds
+    `_lm`'s problem from the static inputs, so a replay reads its own."""
+    def fns(inputs):
+        return _lm(*inputs[:11], damping, dict(zip(OBJ_KEYS, inputs[11:])) or None, card=True)
 
-    A call copies its inputs into the static inputs. The first call then
-    runs the three bodies once each, eagerly, on a side stream: the warm-up
-    that capture needs (the libraries set up their handles and workspaces
-    there). It captures the three graphs on that stream (counted as
-    `ba_graph_capture`) and replays them; every later call replays them
-    (counted as `ba_graph_replay`). A solve is 1 + sum(schedule) +
-    len(schedule) - 1 replays, each step's in its own `ba_lm_step` span.
-    Each call returns clones of the static outputs: the mapper's read-back
-    and the benchmark's tap keep a solve's output while the next solve
-    overwrites the static carry."""
-
-    def __init__(self, args, obj_state, damping, schedule):
-        device = args[0].device
-        self.args = tuple(torch.empty(x.shape, dtype=x.dtype, device=device) for x in args)
-        self.obj_state = None if obj_state is None else {
-            k: torch.empty(obj_state[k].shape, dtype=obj_state[k].dtype, device=device) for k in OBJ_KEYS}
-        self.damping, self.schedule = damping, schedule
-        self.carry = None
-        self.graphs = None
-
-    def load(self, args, obj_state):
-        for dst, src in zip(self.args, args):
-            dst.copy_(src, non_blocking=True)
-        if obj_state is not None:
-            for k, dst in self.obj_state.items():
-                dst.copy_(obj_state[k], non_blocking=True)
-
-    def _fns(self):
-        """`_lm`'s three functions of the static inputs, built inside the
-        graph that calls them."""
-        return _lm(*self.args, self.damping, self.obj_state, card=True)
-
-    def _store(self, carry):
-        for dst, src in zip(self.carry, carry):
-            if dst is not src:
-                dst.copy_(src)
-
-    def _init(self):
-        self._store(self._fns()[0]())
-
-    def _step(self):
-        self._store(self._fns()[1](self.carry))
-
-    def _reclassify(self):
-        self._store(self._fns()[2](self.carry))
-
-    def _capture(self):
-        current = torch.cuda.current_stream()
-        stream = torch.cuda.Stream(current.device)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            self.carry = tuple(t.clone() for t in self._fns()[0]())
-            self._step()
-            self._reclassify()
-        current.wait_stream(stream)
-        graphs = []
-        for body in (self._init, self._step, self._reclassify):
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=stream):
-                body()
-            graphs.append(graph)
-        self.graphs = tuple(graphs)
-
-    def __call__(self, args, obj_state):
-        self.load(args, obj_state)
-        if self.graphs is None:
-            self._capture()
-            timing.count("ba_graph_capture")
-        else:
-            timing.count("ba_graph_replay")
-        init, step, reclassify = self.graphs
-        init.replay()
-        _rounds(self.schedule, lambda _: step.replay(), lambda _: reclassify.replay())
-        return _outputs(tuple(t.clone() for t in self.carry[:5]))
+    return (lambda inputs, _: fns(inputs)[0](),
+            lambda inputs, carry: fns(inputs)[1](carry),
+            lambda inputs, carry: fns(inputs)[2](carry))
 
 
-_GRAPHS: dict = {}   # key -> BAGraph, shared by every local mapper of the process
+CUDA_GRAPHS = graphs.Entry("ba", _bodies)
 
 
 def bundle_adjust(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr, obs_stereo,
@@ -404,25 +332,20 @@ def bundle_adjust(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr,
     Returns dict(kf_poses, points, obs_inlier, obj_poses, obj_edge_inlier),
     tensors of the call's own.
 
-    On a CUDA device the solve goes through the process's `BAGraph` of its
-    key: the device, the TF32 switch, damping and schedule, whether
-    obj_state is given, and each input's shape and dtype, all of which a
-    graph bakes in. It runs eagerly with the library's solves on the CPU,
-    and eagerly with the card's while the current stream is capturing (an
-    outer graph holds it).
+    On a CUDA device the solve replays its graphs (`ops/graphs.py`). Eager
+    solves take the library's solves on the CPU, the card's on a device.
     """
     args = (kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr, obs_stereo, obs_inv_sigma2,
             obs_valid, intrinsics)
     damping, schedule = float(damping), tuple(schedule)
-    if not kf_poses.is_cuda or torch.cuda.is_current_stream_capturing():
+    if graphs.eager(kf_poses):
         return _adjust(args, damping, obj_state, schedule, card=kf_poses.is_cuda)
-    tensors = args + (() if obj_state is None else tuple(obj_state[k] for k in OBJ_KEYS))
-    key = (kf_poses.device, torch.backends.cuda.matmul.allow_tf32, damping, schedule, obj_state is not None,
-           tuple((tuple(x.shape), x.dtype) for x in tensors))
-    graph = _GRAPHS.get(key)
-    if graph is None:
-        graph = _GRAPHS[key] = BAGraph(args, obj_state, damping, schedule)
-    return graph(args, obj_state)
+    obj = () if obj_state is None else tuple(obj_state[k] for k in OBJ_KEYS)
+    cuda = CUDA_GRAPHS(args + obj, damping)
+    init, step, reclassify = cuda.graphs
+    init.replay()
+    _rounds(schedule, lambda _: step.replay(), lambda _: reclassify.replay())
+    return _outputs(cuda.outputs(5))
 
 
 def global_bundle_adjust(kf_poses, kf_fixed, points, pt_valid, obs_kf, obs_pt, obs_uvr, obs_stereo,

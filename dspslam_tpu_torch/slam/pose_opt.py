@@ -10,9 +10,9 @@ weights of the same deltas. Mono and stereo observations share a
 The rounds and iterations are Python loops of a fixed count, and the 6x6
 systems are solved without an error check (`torch.linalg.solve_ex` on the
 CPU, an elementwise Cholesky on a device), so the whole solve is queued on
-the device without a host sync. On a CUDA device the 4 x 10 loop is
-captured once per shape as a CUDA graph and replayed (`PoseGraph`): eagerly
-it is ~4,000 small launches, whose enqueue, not the device, set the pace.
+the device without a host sync. On a CUDA device the 4 x 10 loop replays
+as one CUDA graph per shape (`ops/graphs.py`): eagerly it is ~4,000 small
+launches, whose enqueue, not the device, set the pace.
 Matrix products run in full f32 (callers keep TF32 off).
 """
 
@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import lie
+from ..ops import graphs, lie
 from ..ops.linalg import cholesky_solve_spd
 from ..utils import timing
 
@@ -99,57 +99,7 @@ def _gauss_newton(T_cw_init, pts_w, obs, inv_sigma2, valid, stereo_mask, intrins
     return T, inlier, torch.sum(inlier)
 
 
-class PoseGraph:
-    """Static buffers of one key of `optimize_pose` and the CUDA graph that
-    reads and writes them.
-
-    A call copies its inputs into the static inputs. The first call then
-    runs `run` eagerly on a side stream: the warm-up that capture needs
-    (cuBLAS and the solver set up their handles and workspaces there). The
-    second captures `run` on that stream and launches the graph (counted
-    as `pose_graph_capture`); every later call replays it (counted as
-    `pose_graph_replay`). Each call returns clones of the static outputs:
-    a chained tracker queues the next frame before it fetches this one's
-    result, and the next replay overwrites them."""
-
-    def __init__(self, inputs, settings):
-        device = inputs[1].device
-        self.inputs = tuple(torch.empty(x.shape, dtype=x.dtype, device=device) for x in inputs)
-        self.settings = settings
-        self.outputs = None
-        self.stream = None
-        self.graph = None
-
-    def load(self, inputs):
-        for dst, src in zip(self.inputs, inputs):
-            dst.copy_(src, non_blocking=True)
-
-    def run(self):
-        """The captured body: the GN of the static inputs into the outputs."""
-        self.outputs = _gauss_newton(*self.inputs, *self.settings)
-
-    def __call__(self, inputs):
-        self.load(inputs)
-        if self.stream is None:
-            self.stream = torch.cuda.Stream(self.inputs[1].device)
-            self.stream.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(self.stream):
-                self.run()
-            torch.cuda.current_stream().wait_stream(self.stream)
-        elif self.graph is None:
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=self.stream):
-                self.run()
-            self.graph = graph
-            timing.count("pose_graph_capture")
-            graph.replay()
-        else:
-            self.graph.replay()
-            timing.count("pose_graph_replay")
-        return tuple(t.clone() for t in self.outputs)
-
-
-_GRAPHS: dict = {}   # key -> PoseGraph, shared by every tracker of the process
+CUDA_GRAPHS = graphs.Entry("pose", lambda *settings: (lambda inputs, _: _gauss_newton(*inputs, *settings),))
 
 
 def optimize_pose(T_cw_init, pts_w, obs, inv_sigma2, valid, stereo_mask, intrinsics,
@@ -158,20 +108,12 @@ def optimize_pose(T_cw_init, pts_w, obs, inv_sigma2, valid, stereo_mask, intrins
     """Returns (T_cw, inlier_mask (N,), n_inliers). T_cw_init (4, 4),
     pts_w (N, 3), obs (N, 3) [u, v, u_right], inv_sigma2 / valid /
     stereo_mask (N,), intrinsics (5,) [fx, fy, cx, cy, bf]. chi2_anneal
-    scales the chi2 threshold per round (the default keeps it constant).
-
-    On a CUDA device the GN goes through the process's `PoseGraph` of its
-    key: the device, each input's shape and dtype, the settings and the
-    TF32 switch, all of which a graph bakes in. It runs eagerly on the CPU
-    and while the current stream is capturing (an outer graph holds it)."""
+    scales the chi2 threshold per round (the default keeps it constant)."""
     with timing.span("pose_opt"):
         inputs = (T_cw_init, pts_w, obs, inv_sigma2, valid, stereo_mask, intrinsics)
         settings = (float(damping), tuple(rounds_iters), tuple(float(a) for a in chi2_anneal))
-        if not pts_w.is_cuda or torch.cuda.is_current_stream_capturing():
+        if graphs.eager(pts_w):
             return _gauss_newton(*inputs, *settings)
-        key = (pts_w.device, torch.backends.cuda.matmul.allow_tf32, settings,
-               tuple((tuple(x.shape), x.dtype) for x in inputs))
-        graph = _GRAPHS.get(key)
-        if graph is None:
-            graph = _GRAPHS[key] = PoseGraph(inputs, settings)
-        return graph(inputs)
+        cuda = CUDA_GRAPHS(inputs, *settings)
+        cuda.graphs[0].replay()
+        return cuda.outputs()

@@ -17,21 +17,13 @@ import torch
 from dspslam_tpu.backend import ba as jba
 from dspslam_tpu.ops import lie as jlie
 from dspslam_tpu_torch.backend import ba as tba
+from dspslam_tpu_torch.ops import graphs
 from dspslam_tpu_torch.ops import lie as tlie
 from dspslam_tpu_torch.ops import linalg
+from torch_threads import one_torch_thread  # noqa: F401
 
 FX, FY, CX, CY, BF = 500.0, 500.0, 320.0, 240.0, 200.0
 INTR = np.asarray([FX, FY, CX, CY, BF], np.float32)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for the port's many small CPU ops: with parallel
-    test workers, each worker's default pool oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _exp(x):
@@ -269,6 +261,32 @@ def test_card_solves_match_library_solves(case, request):
     np.testing.assert_array_equal(card["obj_edge_inlier"], t["obj_edge_inlier"])
 
 
+@pytest.mark.parametrize("case", ["noisy_geometry", "joint_problem"])
+def test_ba_graph_bodies_match_eager(case):
+    """Local BA's three CUDA graph bodies (`ops/graphs.py`: init, one LM
+    step, reclassify), run here without capture on their static buffers in
+    the schedule's order: the eager solve's result with the same solves,
+    and a second load (the window's points moved) is read, not stale."""
+    problem, obj_state = (_noisy_problem()[0], None) if case == "noisy_geometry" else _joint_problem()[:2]
+    args, obj = _torch(problem, obj_state)
+    moved = list(args)
+    moved[2] = args[2] + 0.03 * args[3][:, None]
+    g, results = None, []
+    for a in (args, moved):
+        ref = tba._adjust(tuple(a), 1e-3, obj, (5, 10), card=True)
+        inputs = tuple(a) + (() if obj is None else tuple(obj[k] for k in tba.OBJ_KEYS))
+        if g is None:
+            g = graphs.Graphs(inputs, tba.CUDA_GRAPHS.bodies(1e-3))
+        g.load(inputs)
+        init, step, reclassify = g.bodies
+        g.run(init)
+        tba._rounds((5, 10), lambda _: g.run(step), lambda _: g.run(reclassify))
+        out = tba._outputs(g.outputs(5))
+        assert all(torch.equal(out[k], ref[k]) for k in ref)
+        results.append(out)
+    assert not torch.equal(results[0]["points"], results[1]["points"])
+
+
 def test_inv3_matches_inv_ex():
     """The closed-form 3 x 3 inverse against `inv_ex` on damped point
     Hessians as BA builds them: stereo (rank 3) and mono (rank 2) blocks
@@ -317,4 +335,4 @@ def test_global_ba_runs_library_solves_in_float64(monkeypatch):
     assert len(seen) == 2 * 10                                   # one round of 10 steps
     ref = tba.bundle_adjust(*args, 1e-3, None, schedule=(10,))
     assert all(torch.equal(out[k], ref[k]) for k in out)
-    assert out["kf_poses"].dtype == torch.float64 and not tba._GRAPHS
+    assert out["kf_poses"].dtype == torch.float64 and not tba.CUDA_GRAPHS.cache

@@ -30,6 +30,7 @@ from dspslam_tpu.models import deepsdf as jdeepsdf
 from dspslam_tpu.shape import gn as jgn
 from dspslam_tpu_torch.apps import bench, benchmark_slam
 from dspslam_tpu_torch.models import deepsdf
+from torch_threads import one_torch_thread  # noqa: F401
 
 BENCH_PY = pathlib.Path(__file__).resolve().parents[1] / "bench.py"
 ARM_ORDER = ["full", "ab", "mono_redwood", "mono_freiburg", "paced", "gn", "long_loop"]

@@ -17,6 +17,7 @@ import torch
 from dspslam_tpu_torch.apps import benchmark_slam
 from dspslam_tpu_torch.detect import maskrcnn, pointpillars
 from dspslam_tpu_torch.models import deepsdf
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the JAX benchmark's JSON keys (dspslam_tpu/apps/benchmark_slam.py:690-716)
 JAX_KEYS = {
@@ -29,14 +30,6 @@ SMALL_2D = maskrcnn.MaskRCNNConfig(num_classes=4, stage_blocks=(1, 1, 1, 1), ste
 SMALL_3D = pointpillars.PointPillarsConfig(max_pillars=2000, backbone_layers=(1, 1, 1),
                                            backbone_channels=(16, 32, 64), fpn_channels=(32, 32, 32), nms_pre=32,
                                            max_detections=8)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

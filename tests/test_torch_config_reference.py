@@ -17,6 +17,7 @@ import pytest
 
 from dspslam_tpu import config as jcfg
 from dspslam_tpu_torch import config as tcfg
+from torch_threads import one_torch_thread  # noqa: F401
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "reference_configs")
 

@@ -14,6 +14,7 @@ from dspslam_tpu import config as jconfig
 from dspslam_tpu import datasets as jdatasets
 from dspslam_tpu_torch import config as tconfig
 from dspslam_tpu_torch import datasets as tdatasets
+from torch_threads import one_torch_thread  # noqa: F401
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "mini_kitti")
 

@@ -32,6 +32,7 @@ import torch
 from dspslam_tpu.ops.pallas import decoder_kernel as jdk
 from dspslam_tpu_torch.kernels import decoder_fused
 from dspslam_tpu_torch.models import deepsdf
+from torch_threads import one_torch_thread  # noqa: F401
 
 HID, IN, NARROW = 512, 67, 445
 

@@ -26,6 +26,7 @@ from dspslam_tpu.ops.pallas import decoder_kernel as jdk
 from dspslam_tpu_torch.kernels import decoder_fused
 from dspslam_tpu_torch.models import deepsdf
 from dspslam_tpu_torch.utils import timing
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(code_len=8, hidden=(32,) * 4, latent_in=(2,))
 

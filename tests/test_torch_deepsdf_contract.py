@@ -29,6 +29,7 @@ from dspslam_tpu_torch.apps import train_deepsdf
 from dspslam_tpu_torch.kernels import decoder_fused
 from dspslam_tpu_torch.models import deepsdf, deepsdf_train
 from dspslam_tpu_torch.utils import timing
+from torch_threads import one_torch_thread  # noqa: F401
 
 WIDE = dict(code_len=8, hidden=(64,) * 4, latent_in=(2,), use_tanh=True)
 BF16_SDF_TOL = 1e-2

@@ -21,19 +21,12 @@ from dspslam_tpu.models import deepsdf as jdeepsdf
 from dspslam_tpu.models import deepsdf_train as jdt
 from dspslam_tpu_torch.apps import train_deepsdf
 from dspslam_tpu_torch.models import deepsdf, deepsdf_train as tdt
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(code_len=8, hidden=(32,) * 4, latent_in=(2,))
 JCFG = jdeepsdf.DecoderConfig(**SMALL)
 TCFG = deepsdf.DecoderConfig(**SMALL)
 N_SHAPES = 3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def batch_np(seed, n=256):

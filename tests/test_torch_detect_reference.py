@@ -34,6 +34,7 @@ from benchmark.reference import pointpillars as ref3d
 from dspslam_tpu_torch.detect import layers
 from dspslam_tpu_torch.detect import maskrcnn as tmr
 from dspslam_tpu_torch.detect import pointpillars as tpp
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG_2D = {"num_classes": 4, "stage_blocks": [1, 1, 1, 1], "stem_channels": 16, "fpn_channels": 32,
           "anchor_scales": [8.0], "anchor_ratios": [0.5, 1.0, 2.0], "rpn_pre_nms": 64, "rpn_post_nms": 32,
@@ -50,14 +51,6 @@ CFG_3D = {"pc_range": [0.0, -10.24, -3.0, 20.48, 10.24, 1.0], "voxel_size": [0.3
 
 def frozen(cls, block):
     return cls(**{k: tuple(v) if isinstance(v, list) else v for k, v in block.items()})
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

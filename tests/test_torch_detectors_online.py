@@ -34,6 +34,7 @@ from dspslam_tpu_torch.detect import layers
 from dspslam_tpu_torch.detect import maskrcnn as tmr
 from dspslam_tpu_torch.detect import pointpillars as tpp
 from dspslam_tpu_torch.utils import io
+from torch_threads import one_torch_thread  # noqa: F401
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "mini_kitti")
 CFG_2D = tmr.MaskRCNNConfig(num_classes=4, stage_blocks=(1, 1, 1, 1), fpn_channels=32, fc_dim=64,
@@ -43,14 +44,6 @@ CFG_3D = tpp.PointPillarsConfig(
     max_pillars=1024, max_points_per_pillar=16, pfn_channels=32, backbone_layers=(2, 2, 2),
     backbone_channels=(32, 64, 128), fpn_channels=(32, 32, 32), nms_pre=64, max_detections=10,
 )
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 SMALL = {"detector_2d": dataclasses.asdict(CFG_2D), "detector_3d": dataclasses.asdict(CFG_3D)}

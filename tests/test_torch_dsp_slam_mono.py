@@ -21,21 +21,12 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
+from torch_threads import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, os.path.dirname(__file__))
 import test_mono_objects as scene  # noqa: E402
 
 N_FRAMES = 3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for the port's many small CPU ops: with parallel
-    test workers, each worker's default pool oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def write_fixture(root) -> str:

@@ -22,6 +22,7 @@ from dspslam_tpu_torch.datasets.synthetic import blob_images
 from dspslam_tpu_torch.frontend import orb as torb
 from dspslam_tpu_torch.kernels import fast_score
 from dspslam_tpu_torch.utils import timing
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def blob_image(h, w, seed=0):

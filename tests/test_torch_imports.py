@@ -8,6 +8,7 @@ import ast
 import pathlib
 
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # the card's machine has no OpenCV and no torchvision either; the trainers

@@ -24,19 +24,10 @@ from dspslam_tpu_torch.frontend import matcher as tmatcher
 from dspslam_tpu_torch.frontend import orb as torb
 from dspslam_tpu_torch.slam import keyframe_step as tks
 from dspslam_tpu_torch.slam.map import feats_to_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, W, FX = 160, 480, 400.0
 INTR = np.asarray([FX, FX, W / 2, H / 2, FX * 0.4], np.float32)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for the port's many small CPU ops: with parallel
-    test workers, each worker's default pool oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

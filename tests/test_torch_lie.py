@@ -20,6 +20,7 @@ from dspslam_tpu.ops import lie as jlie
 from dspslam_tpu.ops import robust as jrobust
 from dspslam_tpu_torch.ops import lie as tlie
 from dspslam_tpu_torch.ops import robust as trobust
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

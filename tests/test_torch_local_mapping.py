@@ -10,24 +10,14 @@ local BA (f32 sums in another order over 15 LM steps).
 
 import numpy as np
 import pytest
-import torch
 
 from dspslam_tpu.slam import local_mapping as jlm
 from dspslam_tpu.slam import map as jmap
 from dspslam_tpu_torch.slam import local_mapping as tlm
 from dspslam_tpu_torch.slam import map as tmap
+from torch_threads import one_torch_thread  # noqa: F401
 
 FX, FY, CX, CY, BF = 500.0, 500.0, 320.0, 240.0, 100.0
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for the port's many small CPU ops: with parallel
-    test workers, each worker's default pool oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_bucket_selection():

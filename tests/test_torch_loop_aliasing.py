@@ -12,17 +12,9 @@ start closes on the same keyframe with the gate on.
 
 import numpy as np
 import pytest
-import torch
 
 from test_torch_loop_closing import _drifted_run, _sync_ids
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 STORE_A_X, STORE_B_X, PATCH_N = 3.0, 17.0, 18

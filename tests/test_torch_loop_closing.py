@@ -30,19 +30,12 @@ from dspslam_tpu.place import loop_closing as jlc
 from dspslam_tpu.place import vocabulary as jvoc
 from dspslam_tpu_torch.place import loop_closing as tlc
 from dspslam_tpu_torch.place import vocabulary as tvoc
+from torch_threads import one_torch_thread  # noqa: F401
 
 FX = FY = 500.0
 CX, CY = 320.0, 240.0
 BF = 200.0
 PACKAGES = {"jax": (jmap, jlc, jvoc, {}), "torch": (tmap, tlc, tvoc, {"device": "cpu"})}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _sync_ids(start=50_000):

@@ -16,14 +16,7 @@ points defaulting to the card.
 import numpy as np
 import pytest
 import torch
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_full_system_loop_closer_no_false_positives():

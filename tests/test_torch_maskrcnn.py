@@ -34,20 +34,13 @@ import torch.nn.functional as F
 from dspslam_tpu.detect import maskrcnn as jmr
 from dspslam_tpu_torch.detect import layers
 from dspslam_tpu_torch.detect import maskrcnn as tmr
+from torch_threads import one_torch_thread  # noqa: F401
 
 JCFG = jmr.MaskRCNNConfig(
     num_classes=4, stage_blocks=(1, 1, 1, 1), fpn_channels=32, fc_dim=64,
     rpn_pre_nms=64, rpn_post_nms=16, max_detections=5,
 )
 TCFG = tmr.MaskRCNNConfig(**dataclasses.asdict(JCFG))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def numpy_params(cfg, seed=0):

@@ -35,18 +35,11 @@ from dspslam_tpu.detect import maskrcnn_train as jmt
 from dspslam_tpu_torch.detect import layers
 from dspslam_tpu_torch.detect import maskrcnn as tmr
 from dspslam_tpu_torch.detect import maskrcnn_train as tmt
+from torch_threads import one_torch_thread  # noqa: F401
 
 JCFG = dataclasses.replace(jmt.small_config(), rpn_pre_nms=64, rpn_post_nms=16)
 TCFG = tmr.MaskRCNNConfig(**dataclasses.asdict(JCFG))
 HW = (96, 160)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,7 @@ from dspslam_tpu.frontend import stereo as jst
 from dspslam_tpu_torch.datasets.synthetic import LayeredWorld
 from dspslam_tpu_torch.frontend import matcher as tm
 from dspslam_tpu_torch.frontend import stereo as tst
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):

@@ -38,6 +38,7 @@ from dspslam_tpu_torch.frontend import matcher as tm
 from dspslam_tpu_torch.frontend import orb as torb
 from dspslam_tpu_torch.objects import cuboid as tcuboid
 from dspslam_tpu_torch.slam import initializer as tinit
+from torch_threads import one_torch_thread  # noqa: F401
 
 K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
 

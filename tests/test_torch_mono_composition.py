@@ -17,12 +17,12 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
 from dspslam_tpu_torch.frontend import orb as torb
 from dspslam_tpu_torch.slam import local_mapping as tlocal
 from dspslam_tpu_torch.slam import system as tsystem
 from dspslam_tpu_torch.slam import tracking as ttracking
+from torch_threads import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, __file__.rsplit("/", 1)[0])
 import test_mono_slam as mono_scene  # noqa: E402
@@ -33,8 +33,6 @@ WARMUP = 6
 
 @pytest.fixture(scope="module")
 def counted_run():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
     s = mono_scene
     world = s.textured_world()
     system = tsystem.SLAMSystem(
@@ -60,7 +58,6 @@ def counted_run():
             count[0] = 0
             system.track_mono(s.render(world, k * 0.12), timestamp=0.1 * k)
             counts.append(count[0])
-    torch.set_num_threads(n)
     return system, np.asarray(counts)
 
 

@@ -29,7 +29,6 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
 from dspslam_tpu.frontend import orb as jorb
 from dspslam_tpu.models import deepsdf as jdeepsdf
@@ -47,6 +46,7 @@ from dspslam_tpu_torch.shape import gn as tgn
 from dspslam_tpu_torch.slam import map as tmap
 from dspslam_tpu_torch.slam import system as tsystem
 from dspslam_tpu_torch.slam import tracking as ttracking
+from torch_threads import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, __file__.rsplit("/", 1)[0])
 import test_mono_objects as scene  # noqa: E402
@@ -57,16 +57,6 @@ PIPE_KW = dict(max_surface_points=128, max_rays=256, extract_meshes=True, voxels
                warmup_kfs=5, recon_every=2)
 DET_FIELDS = ("T_cam_obj", "scale", "box_size", "surface_points", "rays", "depth", "num_foreground",
               "mask", "bbox")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for the port's many small CPU ops: with parallel
-    test workers, each worker's default pool oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _port_detection(det):

@@ -27,19 +27,10 @@ from dspslam_tpu.slam import tracking as jtracking
 from dspslam_tpu_torch.frontend import orb as torb
 from dspslam_tpu_torch.slam import system as tsystem
 from dspslam_tpu_torch.slam import tracking as ttracking
+from torch_threads import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, __file__.rsplit("/", 1)[0])
 import test_mono_slam as mono_scene  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for the port's many small CPU ops: with parallel
-    test workers, each worker's default pool oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _mono_config(mod, form):

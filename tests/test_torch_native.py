@@ -16,6 +16,7 @@ import pytest
 from dspslam_tpu import native as jnative
 from dspslam_tpu_torch import native as tnative
 from dspslam_tpu_torch.objects import detections as tdet
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _scenes():

@@ -11,7 +11,6 @@ in another order).
 
 import numpy as np
 import pytest
-import torch
 
 from dspslam_tpu.models import deepsdf as jdeepsdf
 from dspslam_tpu.objects import association as jassoc
@@ -25,18 +24,9 @@ from dspslam_tpu_torch.objects import pipeline as tpipe
 from dspslam_tpu_torch.objects.detections import Detection as TDetection
 from dspslam_tpu_torch.shape import gn as tgn
 from dspslam_tpu_torch.slam import map as tmap
+from torch_threads import one_torch_thread  # noqa: F401
 
 CODE = 8
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for the port's many small CPU ops: with parallel
-    test workers, each worker's default pool oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_kf(mod, T_cw=np.eye(4, dtype=np.float32)):

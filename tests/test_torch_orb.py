@@ -30,6 +30,7 @@ from dspslam_tpu_torch.datasets.synthetic import LayeredWorld, forward_turn_traj
 from dspslam_tpu_torch.frontend import orb as torb
 from dspslam_tpu_torch.kernels import fast_score
 from dspslam_tpu_torch.utils import timing
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -41,6 +41,7 @@ from dspslam_tpu_torch.models import deepsdf, deepsdf_train as tdt
 from dspslam_tpu_torch.parallel import dryrun, mesh_utils, tp_decoder
 from dspslam_tpu_torch.shape import gn, mesh as mesh_mod
 from dspslam_tpu_torch.utils.io import read_mesh_ply
+from torch_threads import one_torch_thread  # noqa: F401
 
 PLAIN = dict(code_len=8, hidden=(64, 64, 64), latent_in=())        # JAX's test_parallel config
 LATENT = dict(code_len=8, hidden=(64,) * 4, latent_in=(2,))        # JAX's dry run config
@@ -55,14 +56,6 @@ GN_CFG = dict(code_len=8, num_iterations=2, num_depth_samples=8, max_grad_points
 GN_CASES = {"gn": GN_CFG, "gn:no_rotation_prior": dict(GN_CFG, k4=0.0)}
 TRAIN_APP = ["--synthetic", "--steps", "3", "--batch", "256", "--code_len", "8", "--hidden", "64", "--layers", "4",
              "--device", "cpu"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def jax_params(cfg: dict, seed: int) -> dict:

@@ -27,14 +27,7 @@ from dspslam_tpu_torch.place import orbvoc as torbvoc
 from dspslam_tpu_torch.place import sim3 as tsim3
 from dspslam_tpu_torch.place import vocabulary as tvoc
 from dspslam_tpu_torch.slam import pnp as tpnp
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def random_descs(n, seed=0):

@@ -39,6 +39,7 @@ import torch
 from dspslam_tpu.detect import pointpillars as jpp
 from dspslam_tpu_torch.detect import layers
 from dspslam_tpu_torch.detect import pointpillars as tpp
+from torch_threads import one_torch_thread  # noqa: F401
 
 JCFG = jpp.PointPillarsConfig(
     pc_range=(0.0, -10.24, -3.0, 20.48, 10.24, 1.0), voxel_size=(0.32, 0.32, 4.0),
@@ -46,14 +47,6 @@ JCFG = jpp.PointPillarsConfig(
     backbone_channels=(32, 64, 128), fpn_channels=(32, 32, 32), nms_pre=64, max_detections=10,
 )
 TCFG = tpp.PointPillarsConfig(**{f.name: getattr(JCFG, f.name) for f in dataclasses.fields(JCFG)})
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def car_scan(seed=17, centers=((8.0, 2.0), (14.0, -4.0)), n_bg=2000):

@@ -55,6 +55,7 @@ from dspslam_tpu.detect import pointpillars_train as jppt
 from dspslam_tpu_torch.detect import layers
 from dspslam_tpu_torch.detect import pointpillars as tpp
 from dspslam_tpu_torch.detect import pointpillars_train as tppt
+from torch_threads import one_torch_thread  # noqa: F401
 
 JCFG = jpp.PointPillarsConfig(
     pc_range=(0.0, -10.24, -3.0, 20.48, 10.24, 1.0), voxel_size=(0.32, 0.32, 4.0), max_pillars=4096,
@@ -63,14 +64,6 @@ JCFG = jpp.PointPillarsConfig(
 )
 TCFG = tpp.PointPillarsConfig(**dataclasses.asdict(JCFG))
 ADAM_EPS = 1e-8         # optax.adam's and layers.Trainer's
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def clean(scan, cfg=JCFG, margin=0.01):

@@ -23,14 +23,7 @@ from dspslam_tpu.backend import pose_graph as jpg
 from dspslam_tpu.ops import lie as jlie
 from dspslam_tpu_torch.backend import pose_graph as tpg
 from dspslam_tpu_torch.ops import lie as tlie
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _rand_sim3(rng, t=1.0, rot=0.3, s=0.05):

@@ -18,9 +18,11 @@ import torch
 from dspslam_tpu.ops import lie as jlie
 from dspslam_tpu.ops import lie_np as jlie_np
 from dspslam_tpu.slam import pose_opt as jpo
+from dspslam_tpu_torch.ops import graphs
 from dspslam_tpu_torch.ops import lie as tlie
 from dspslam_tpu_torch.ops import lie_np as tlie_np
 from dspslam_tpu_torch.slam import pose_opt as tpo
+from torch_threads import one_torch_thread  # noqa: F401
 
 FX, FY, CX, CY, BF = 400.0, 400.0, 240.0, 80.0, 160.0
 INTR = np.array([FX, FY, CX, CY, BF], np.float32)
@@ -112,21 +114,22 @@ def _args(seed, stereo, n, cap):
 @pytest.mark.parametrize("cap", [64, 4096])
 @pytest.mark.parametrize("stereo", [True, False])
 def test_pose_graph_body_matches_eager(stereo, cap):
-    """The body a CUDA graph captures, run here without one on its static
-    buffers: the eager GN's result, and a second load's inputs are read
-    (no stale buffer)."""
-    graph, poses = None, []
+    """The body the pose GN's CUDA graph captures (`ops/graphs.py`), run
+    here without one on its static buffers: the eager GN's result, and a
+    second load's inputs are read (no stale buffer)."""
+    g, poses = None, []
     for seed in (3, 4):
         args = _args(seed, stereo, min(300, cap // 2), cap)
         ref = tpo.optimize_pose(*args)
-        if graph is None:
-            graph = tpo.PoseGraph(args, SETTINGS)
-        graph.load(args)
-        graph.run()
-        T, inlier, n_in = graph.outputs
+        if g is None:
+            g = graphs.Graphs(args, tpo.CUDA_GRAPHS.bodies(*SETTINGS))
+        g.load(args)
+        for body in g.bodies:
+            g.run(body)
+        T, inlier, n_in = g.outputs()
         assert (T - ref[0]).abs().max() <= 1e-6
         assert torch.equal(inlier, ref[1]) and float(n_in) == float(ref[2])
-        poses.append(T.clone())
+        poses.append(T)
     assert not torch.equal(poses[0], poses[1])
 
 

@@ -28,6 +28,7 @@ from dspslam_tpu_torch.utils import io as io_mod
 
 from test_torch_deepsdf import write_experiment
 from test_torch_shape import SMALL, sphere_like_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _chamfer_m(rec_a, rec_b):

@@ -26,18 +26,11 @@ from dspslam_tpu.place import vocabulary as jvoc
 from dspslam_tpu.slam import relocalization as jreloc
 from dspslam_tpu_torch.place import vocabulary as tvoc
 from dspslam_tpu_torch.slam import relocalization as treloc
+from torch_threads import one_torch_thread  # noqa: F401
 
 FX = FY = 500.0
 CX, CY = 320.0, 240.0
 INTR = [FX, FY, CX, CY, 200.0]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _world():

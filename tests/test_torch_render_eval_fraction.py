@@ -30,6 +30,7 @@ from dspslam_tpu_torch.shape import gn, losses
 
 from test_shape import CODE_LEN, make_rays, make_surface_points
 from test_torch_shape import SMALL, close, perturbed_poses, sphere_like_params, t
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, R, S, K = 2, 64, 16, 128
 

@@ -10,6 +10,7 @@ import torch
 
 from dspslam_tpu.ops import rotated_iou as jriou
 from dspslam_tpu_torch.ops import rotated_iou as triou
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 

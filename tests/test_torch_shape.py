@@ -40,6 +40,7 @@ from test_shape import (
     make_surface_points,
     true_pose,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(code_len=CODE_LEN, hidden=(32,) * 4, latent_in=(2,))
 

@@ -14,7 +14,7 @@ import sys
 
 import numpy as np
 import pytest
-import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, "tests")
 import test_shape_refinement as jref  # noqa: E402
@@ -24,14 +24,6 @@ from dspslam_tpu_torch.objects.detections import Detection as TDetection  # noqa
 from dspslam_tpu_torch.objects.pipeline import ObjectPipeline as TPipeline  # noqa: E402
 from dspslam_tpu_torch.shape import gn as tgn  # noqa: E402
 from dspslam_tpu_torch.slam import map as tmap  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _port_kf(cam_x):

@@ -17,21 +17,12 @@
 import sys
 
 import numpy as np
-import pytest
-import torch
 
 from dspslam_tpu.slam import state_io as jstate
 from dspslam_tpu_torch.slam import state_io as tstate
+from torch_threads import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, "tests")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _same_maps(a, b):

@@ -32,6 +32,7 @@ from dspslam_tpu_torch.objects.pipeline import ObjectPipeline as TPipeline
 from dspslam_tpu_torch.shape import gn as tgn
 from dspslam_tpu_torch.slam import system as tsystem
 from dspslam_tpu_torch.slam import tracking as ttracking
+from torch_threads import one_torch_thread  # noqa: F401
 
 FX = FY = 500.0
 CX, CY = 320.0, 120.0
@@ -43,16 +44,6 @@ SPHERES_W = np.array([[1.0, 0.6, 6.0], [2.5, 0.4, 7.5]], np.float32)
 RADIUS = 1.0
 STEP = 0.15
 N_FRAMES = 8
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for the port's many small CPU ops: with parallel
-    test workers, each worker's default pool oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def textured_world(seed=0):

@@ -21,18 +21,9 @@ import pytest
 import torch
 
 from dspslam_tpu_torch.utils import timing
+from torch_threads import one_torch_thread  # noqa: F401
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "mini_kitti")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for the port's many small CPU ops: with parallel
-    test workers, each worker's default pool oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class Recorder:

@@ -37,6 +37,7 @@ from dspslam_tpu_torch.frontend import orb as torb
 from dspslam_tpu_torch.slam import map as tmap
 from dspslam_tpu_torch.slam import tracking as ttr
 from dspslam_tpu_torch.utils.evaluation import ate_rmse
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, W, FX, BASELINE = 160, 480, 400.0, 0.4
 KITTI_CONFIG = pathlib.Path(__file__).resolve().parents[1] / "configs" / "kitti_00_02.json"

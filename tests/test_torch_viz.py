@@ -27,16 +27,9 @@ from dspslam_tpu_torch.shape import mesh as mesh_mod
 from dspslam_tpu_torch.slam.map import Frame, KeyFrame, Map, MapObject, MapPoint
 from dspslam_tpu_torch.utils import io as io_mod
 from dspslam_tpu_torch.viz import frame_drawer, live_viewer, renderer
+from torch_threads import one_torch_thread  # noqa: F401
 
 K = np.array([[200.0, 0, 80.0], [0, 200.0, 60.0], [0, 0, 1]])
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def sphere_mesh(radius=1.0, n=24):

@@ -19,19 +19,12 @@ from dspslam_tpu.place import orbvoc as jorbvoc
 from dspslam_tpu.place import vocabulary as jvoc
 from dspslam_tpu_torch.place import orbvoc as torbvoc
 from dspslam_tpu_torch.place import vocabulary as tvoc
+from torch_threads import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, "tests")
 sys.path.insert(0, "tools")
 import test_vocab_scale as street_mod  # noqa: E402
 from vocab_reference_scale import generate_complete_dbow2  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
