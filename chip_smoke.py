@@ -1,5 +1,5 @@
 """Smoke test of the PyTorch port on one CUDA card: builds kernels K1 and K2
-from the repository's sources, checks each against its plain PyTorch
+and the greedy-NMS kernel from the repository's sources, checks each against its plain PyTorch
 version, drives single-frame object reconstruction, stereo tracking,
 object SLAM in stereo, mono and RGB-D, place recognition with loop
 closing, the online detectors, the decoder fit with the benchmark's full
@@ -12,7 +12,8 @@ them.
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. K1's and K2's builds (one nvcc each, started together, sm_90a);
+  2. K1's, K2's and the greedy-NMS kernel's builds (one nvcc each,
+     started together, sm_90a);
   3. K1 against its plain version at N in {1, 7, 63, 64, 65, 300, 2048,
      4000, 8192} rows (ragged 64-row tiles), with each 64-row tile on a
      cluster of 1 and of 2 CTAs; each width's SASS must hold TF32
@@ -126,8 +127,9 @@ Phases (any failure exits non-zero, and no result line is printed):
         `apps.extract_map_objects.main` on the card and on the CPU: the same
         vertex and face counts, every vertex within 1e-4 of the other
         mesh's nearest (the host mesher's weld may order them differently).
- 11. the online detectors (slice 6; seeded random weights, no kernel of
-     their own) through their entry points:
+ 11. the online detectors (slice 6; seeded random weights; their one
+     kernel is the greedy NMS, csrc/greedy_nms.cu) through their entry
+     points:
      a. MaskRCNN at full width (R50-FPN, 256 channels, 80 classes, RPN
         512 / 128, 16 detections) on phase 7's first left frame as RGB, card
         against the CPU stage by stage on identical inputs: the bf16
@@ -147,8 +149,21 @@ Phases (any failure exits non-zero, and no result line is printed):
      d. `apps.dsp_slam.main` over mini-KITTI with `detect_online: true` and
         phase 4's random DeepSDF: 3 frames, none lost, both detectors
         dispatched once per keyframe, K2 once per tracked frame, K1 exactly
-        as the object GN calls need, the map files parse. Nothing downstream
-        of a detector's discrete choice is compared between card and CPU.
+        as the object GN calls need, the NMS kernel twice per MaskRCNN and
+        once per PointPillars call, the map files parse. Nothing downstream
+        of a detector's discrete choice is compared between card and CPU;
+     e. the greedy-NMS kernel at the kitti_detect cell's settings
+        (benchmark/configs/kitti_04_12_online.json): one `Detector2D` and one
+        `Detector3D` call on 11a's frame and 11b's scan, counted from 0
+        (`nms_launches` 3), with the three calls' inputs recorded (the RPN's
+        4441 candidates and 1000 rounds under its per-level mask, the
+        R-CNN's 1000 and 100, PointPillars' 100 and 50 over rotated
+        overlaps); each call replayed on the card equals the plain loop
+        (`greedy_suppress_plain`) on the CPU and on the card, picks, scores
+        and ok, exactly; the kernel's time per call (CUDA events, back to
+        back; device time from the profiler) beside the plain loop's on the
+        card (wall, synchronized) and the bound of its bytes (the scores and
+        each kept pick's overlap row over HBM).
  12. slice 7 (the decoder fit and the full workload, the detector trainers,
      the vocabulary trainer, the overlays) through their entry points:
      a. `deepsdf_train.fit_spheres` at `benchmark_slam.train_bench_decoder`'s
@@ -242,7 +257,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      calls need in `ab`, K2 once per extracted frame in `ab` and
      `mono_redwood`.
 The last lines are JSON summaries of slice 5's to slice 10's numbers, the
-card, a JSON summary of the kernels (K1's and K2's
+card, a JSON summary of the kernels (the greedy NMS's `launches` phase
+11d, its times and `cell_launches` 11e; K1's and K2's
 `slam_launches` count phase 8b, their `mono_launches` phases 9b and 9a,
 `loop_slam_launches` / `loop_launches` phase 10, `detector_slam_launches`
 phase 11d, `full_arm_launches` phase 12b, K2's `vocabulary_launches` 12d,
@@ -281,8 +297,8 @@ from dspslam_tpu_torch.apps import (  # noqa: E402
 )
 from dspslam_tpu_torch.apps.bench import canonical_params_np  # noqa: E402
 from dspslam_tpu_torch.backend import ba, pose_graph  # noqa: E402
-from dspslam_tpu_torch.config import SystemConfig  # noqa: E402
-from dspslam_tpu_torch.datasets.kitti import KITTISequence  # noqa: E402
+from dspslam_tpu_torch.config import DetectionConfig, SystemConfig  # noqa: E402
+from dspslam_tpu_torch.datasets.kitti import KITTISequence, detector_configs  # noqa: E402
 from dspslam_tpu_torch.datasets.mono import build_mono_detection  # noqa: E402
 from dspslam_tpu_torch.datasets.synthetic import (  # noqa: E402
     blob_images, kitti_turn_sequence, render_poses, render_stereo_u8,
@@ -291,7 +307,7 @@ from dspslam_tpu_torch.detect import (  # noqa: E402
     layers, maskrcnn, maskrcnn_train, offline, pointpillars, pointpillars_train,
 )
 from dspslam_tpu_torch.frontend import matcher, orb, undistort  # noqa: E402
-from dspslam_tpu_torch.kernels import _nvcc, decoder_fused, fast_score  # noqa: E402
+from dspslam_tpu_torch.kernels import _nvcc, decoder_fused, fast_score, greedy_nms  # noqa: E402
 from dspslam_tpu_torch.models import deepsdf, deepsdf_train  # noqa: E402
 from dspslam_tpu_torch.objects.mono_pipeline import MonoObjectPipeline  # noqa: E402
 from dspslam_tpu_torch.place import loop_closing  # noqa: E402
@@ -312,6 +328,10 @@ SRC = "dspslam_tpu_torch/csrc/decoder_fused.cu"
 REPLACES = "dspslam_tpu/ops/pallas/decoder_kernel.py:106"
 K2_SRC = "dspslam_tpu_torch/csrc/fast_score.cu"
 K2_REPLACES = "dspslam_tpu/ops/pallas/fast_kernel.py:41"
+NMS_SRC = "dspslam_tpu_torch/csrc/greedy_nms.cu"
+# no TPU kernel: the JAX package's greedy NMS is a lax.fori_loop
+NMS_REPLACES = "dspslam_tpu/detect/maskrcnn.py:221"
+DETECT_CELL_CONFIG = "benchmark/configs/kitti_04_12_online.json"
 KITTI_CONFIG = "configs/kitti_00_02.json"
 MINI_KITTI = "tests/fixtures/mini_kitti"
 # published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32
@@ -2143,6 +2163,7 @@ def phase_detect_online(tmp: str, name: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1, k2 = launches_since(mark)
+    nms = counter_totals().get("nms_launches", 0) - mark.get("nms_launches", 0)
     tr = system.tracker
     lost = sum(1 for _, _, l in tr.trajectory if l)
     pipeline = system.local_mapper.object_pipeline
@@ -2155,12 +2176,13 @@ def phase_detect_online(tmp: str, name: str) -> dict:
     print(f"[11d] dsp_slam over mini-KITTI with detect_online on the card ({wall:.1f} s): {len(tr.trajectory)} "
           f"frames, {lost} lost, {n_kf} keyframes, detection calls {len(seqs)}, MaskRCNN dispatches {d2}, "
           f"PointPillars dispatches {d3}, {len(objs)} objects; GN calls {pipeline.dispatches}; K1 launches {k1} "
-          f"(expected {expected}), K2 launches {k2} ({tr.n_redone} frames re-tracked) on {name}")
+          f"(expected {expected}), K2 launches {k2} ({tr.n_redone} frames re-tracked), NMS launches {nms} on {name}")
     check(len(tr.trajectory) == 3 and lost == 0, f"11d: {len(tr.trajectory)} frames, {lost} lost")
     check(len(seqs) == n_kf >= 1 and len(set(map(id, seqs))) == 1, f"11d: {len(seqs)} detection calls, {n_kf} keyframes")
     check(d2 == d3 == n_kf, f"11d: detectors dispatched {d2} / {d3} times for {n_kf} keyframes")
     check(k1 == expected, f"11d: K1 launched {k1} times, expected {expected}")
     check(k2 == 3 + tr.n_redone, f"11d: K2 launched {k2} times")
+    check(nms == 2 * d2 + d3, f"11d: the NMS kernel launched {nms} times for {d2} + {d3} detector calls")
     cams = np.loadtxt(os.path.join(out, "Cameras.txt")).reshape(-1, 3, 4)
     pts = np.loadtxt(os.path.join(out, "MapPoints.txt")).reshape(-1, 3)
     lines = [ln for ln in open(os.path.join(out, "MapObjects.txt")).read().split("\n") if ln.strip()]
@@ -2170,7 +2192,74 @@ def phase_detect_online(tmp: str, name: str) -> dict:
         int(lines[i])
         check(len(lines[i + 1].split()) == 12 and len(lines[i + 2].split()) == 64,
               f"11d: MapObjects.txt entry {i // 3} malformed")
-    return {"k1_launches": k1, "k2_launches": k2, "keyframes": n_kf, "objects": len(objs), "wall_s": wall}
+    return {"k1_launches": k1, "k2_launches": k2, "nms_launches": nms, "keyframes": n_kf, "objects": len(objs),
+            "wall_s": wall}
+
+
+def phase_nms(rgb: np.ndarray, scan: np.ndarray, name: str) -> dict:
+    """11e: the greedy-NMS kernel at the kitti_detect cell's detector
+    settings. One Detector2D and one Detector3D call (seeded random weights)
+    on 11a's frame and 11b's scan, counted from a mark, record their three
+    NMS calls' inputs; each call is replayed: the kernel against the plain
+    loop on the CPU and on the card (picks, scores, ok equal), then timed."""
+    with open(DETECT_CELL_CONFIG) as f:
+        cfg_2d, cfg_3d = detector_configs(DetectionConfig(**json.load(f)["detection"]))
+    det2d = maskrcnn.Detector2D(cfg=cfg_2d, device=DEV)
+    det3d = pointpillars.Detector3D(cfg=cfg_3d, device=DEV)
+    det2d.make_prediction(rgb)
+    det3d.make_prediction(scan)
+    calls = []
+
+    def recorded(iou, scores, *args, **kwargs):
+        calls.append((iou.clone(), scores.clone(), args, kwargs))
+        return greedy_nms.greedy_suppress(iou, scores, *args, **kwargs)
+
+    torch.cuda.synchronize()
+    mark = counter_totals()
+    with mock.patch.object(maskrcnn, "greedy_suppress", recorded), \
+            mock.patch.object(pointpillars, "greedy_suppress", recorded):
+        det2d.make_prediction(rgb)
+        det3d.make_prediction(scan)
+    torch.cuda.synchronize()
+    launches = counter_totals().get("nms_launches", 0) - mark.get("nms_launches", 0)
+    print(f"[11e] one Detector2D and one Detector3D call at {DETECT_CELL_CONFIG}'s settings: {len(calls)} NMS "
+          f"calls, nms_launches {launches} on {name}")
+    check(len(calls) == 3 and launches == 3, f"11e: {len(calls)} NMS calls, {launches} launches, expected 3")
+    shapes = {"rpn": (None, cfg_2d.rpn_post_nms), "rcnn": (cfg_2d.rpn_post_nms, cfg_2d.max_detections),
+              "pointpillars": (cfg_3d.nms_pre, cfg_3d.max_detections)}
+    out, max_err = {}, 0.0
+    for (label, (n_want, k_want)), (iou, scores, args, kwargs) in zip(shapes.items(), calls):
+        n, k = scores.shape[0], args[0]
+        check(k == k_want and n == (n_want or n), f"11e: {label} NMS of {n} candidates, {k} rounds")
+
+        def kernel():
+            return greedy_nms.greedy_suppress(iou, scores, *args, **kwargs)
+
+        got = kernel()
+        on_card = greedy_nms.greedy_suppress_plain(iou, scores, *args, **kwargs)
+        on_cpu = greedy_nms.greedy_suppress_plain(iou.cpu(), scores.cpu(), *args, **kwargs)
+        equal = all(torch.equal(g.cpu(), w) and torch.equal(c.cpu(), w) for g, c, w in zip(got, on_card, on_cpu))
+        max_err = max(max_err, float((got[1].cpu() - on_cpu[1]).abs().max()))
+        ms = cuda_ms(kernel, 50)
+        dev = kernel_device_ms(kernel, 20, "greedy_nms_kernel")
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            greedy_nms.greedy_suppress_plain(iou, scores, *args, **kwargs)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        kept = int(on_cpu[2].sum())
+        # the scores once, each kept pick's overlap row, the outputs (13 bytes a round)
+        b_ms, b_by = bound(4 * n + 4 * n * kept + 13 * k, 0.0)
+        out[label] = {"n": n, "k": k, "kept": kept, "equal": equal, "ms": ms, "device_ms": dev,
+                      "plain_ms": float(np.median(walls)), "bound_ms": b_ms, "bound_by": b_by}
+        print(f"[11e] {label} ({n} candidates, {k} rounds, {kept} kept): kernel vs the plain loop on the CPU and "
+              f"on the card {'equal' if equal else 'DIFFER'}; kernel {ms:.4f} ms a call back to back (device "
+              f"{dev:.4f}, {dev / k * 1e3:.3f} us a round), plain loop on the card {out[label]['plain_ms']:.2f} "
+              f"ms (wall, median of 3), bound {b_ms * 1e3:.3f} us ({b_by}) on {name}")
+        check(equal, f"11e: the {label} NMS kernel differs from the plain loop")
+    return {"launches": launches, "max_abs_err": max_err, "calls": out}
 
 
 # ---------------------------------------------------------------------------
@@ -3150,9 +3239,9 @@ def main():
           f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda mod: mod.build(), (decoder_fused, fast_score)))
-    print(f"[2] K1 and K2 builds (two nvcc, in parallel, sm_90a): {time.perf_counter() - t0:.2f} s "
+    with ThreadPoolExecutor(3) as pool:
+        libs = list(pool.map(lambda mod: mod.build(), (decoder_fused, fast_score, greedy_nms)))
+    print(f"[2] K1, K2 and greedy NMS builds (three nvcc, in parallel, sm_90a): {time.perf_counter() - t0:.2f} s "
           f"-> {', '.join(os.path.relpath(so) for so in libs)}")
 
     dec = deepsdf.params_from_jax(canonical_params_np(seed=1), device=DEV)
@@ -3208,8 +3297,10 @@ def main():
         t11 = time.perf_counter()
         mrcnn = phase_maskrcnn(images[0][0], name)
         pillars = phase_pointpillars(name)
-        timing = phase_detector_timing(mrcnn.pop("rgb"), pillars.pop("scan"), name)
+        rgb, scan = mrcnn.pop("rgb"), pillars.pop("scan")
+        timing = phase_detector_timing(rgb, scan, name)
         online = phase_detect_online(tmp, name)
+        nms = phase_nms(rgb, scan, name)
         t11 = time.perf_counter() - t11
         print(f"[11] slice 6 phases: {t11:.1f} s")
         seconds("10-11")
@@ -3255,7 +3346,7 @@ def main():
     }
     print(json.dumps({"slice5": slice5}))
     print(json.dumps({"slice6": {"maskrcnn": mrcnn, "pointpillars": pillars, **timing,
-                                 "online": online, "seconds": t11}}))
+                                 "online": online, "nms": nms, "seconds": t11}}))
     print(json.dumps({"slice7": {"decoder_fit": fit, "full_arm": {k: full[k] for k in ("record", "stage_ms",
                                                                                       "profile", "wall_s")},
                                  "closed_loops": loops, "vocabulary": vocab, "overlays": overlays,
@@ -3318,6 +3409,12 @@ def main():
         "bench_launches": {"full": full["k2_launches"], "ab": slice10["launches"]["ab"]["k2"],
                            "mono_redwood": slice10["launches"]["mono_redwood"]["k2"],
                            "mono_freiburg": mono["k2"]["pipelined"], "paced": mono["k2"]["paced"]},
+    }, {
+        "name": "greedy_nms", "route": "cuda", "source": NMS_SRC, "replaces": NMS_REPLACES,
+        "launches": online["nms_launches"], "cell_launches": nms["launches"], "max_abs_err": nms["max_abs_err"],
+        "ms": nms["calls"]["rpn"]["ms"], "plain_ms": nms["calls"]["rpn"]["plain_ms"],
+        "bound_ms": nms["calls"]["rpn"]["bound_ms"], "bound_by": nms["calls"]["rpn"]["bound_by"],
+        "library_ms": None, "device_ms": nms["calls"]["rpn"]["device_ms"], "by_call": nms["calls"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,14 +12,14 @@ scratch:
   -> boxes scaled back, masks pasted at the input's size (host)
 
 Every stage has a fixed shape (top-k and validity flags, no dynamic
-filtering), greedy NMS is a fixed-K loop over device tensors, and nothing
-between the image upload and the pinned copies of the outputs waits for
-the device, so `Detector2D.dispatch` returns while the card works. The
-backbone runs in `backbone_dtype` (bf16 by default, JAX's own choice); the
-heads and all box math run in f32 with TF32 off. RoIAlign is the gather
-form (JAX's `roi_align_matmul` works around slow TPU gathers and is not
-ported). `load_mmdet_checkpoint` ingests mmdet 2.x .pth weights with
-BatchNorm folding.
+filtering), greedy NMS is fixed-K (one kernel launch a call on the card,
+kernels/greedy_nms.py), and nothing between the image upload and the
+pinned copies of the outputs waits for the device, so `Detector2D.dispatch`
+returns while the card works. The backbone runs in `backbone_dtype` (bf16
+by default, JAX's own choice); the heads and all box math run in f32 with
+TF32 off. RoIAlign is the gather form (JAX's `roi_align_matmul` works
+around slow TPU gathers and is not ported). `load_mmdet_checkpoint`
+ingests mmdet 2.x .pth weights with BatchNorm folding.
 
 mmdetection's test pipeline (mask_rcnn_r50_fpn_1x_coco.py) is the
 configuration's: `test_scale` (1333, 800) resizes the image keeping its
@@ -47,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels.greedy_nms import greedy_suppress
 from ..slam.map import entry_device, to_torch
 from ..slam.tracking import _host_result, _prefetch_to_host
 from ..utils import timing
@@ -224,28 +225,6 @@ def iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return inter / torch.clamp(area_a[:, None] + area_b[None, :] - inter, min=1e-6)
 
 
-def greedy_suppress(iou: torch.Tensor, scores: torch.Tensor, k: int, iou_thresh: float,
-                    dead: float, keep):
-    """Fixed-K greedy NMS over a precomputed (n, n) overlap matrix: k rounds
-    of "take the best live candidate (the first among equal scores), drop
-    those that overlap it above iou_thresh"; `keep(s)` says whether a pick
-    with score s is a detection. Sync-free: every index stays on the device.
-    Returns (picked indices (k,), their scores (k,), ok (k,) bool)."""
-    alive = torch.ones_like(scores)
-    picks, vals, oks = [], [], []
-    for _ in range(k):
-        masked = torch.where(alive > 0, scores, dead)
-        j = torch.argmax(masked, dim=0, keepdim=True)
-        s = masked.gather(0, j)
-        ok = keep(s)
-        suppress = ok & (iou.index_select(0, j)[0] > iou_thresh)
-        alive = torch.where(suppress, 0.0, alive).scatter(0, j, 0.0)
-        picks.append(j)
-        vals.append(s)
-        oks.append(ok)
-    return torch.cat(picks), torch.cat(vals), torch.cat(oks)
-
-
 def greedy_nms(boxes, scores, k: int, iou_thresh: float, score_thresh: float = -float("inf"), groups=None):
     """Fixed-K greedy NMS: returns (boxes (k, 4), scores (k,), valid (k,)).
     With `groups` (n,) a box suppresses only boxes of its own group."""
@@ -253,7 +232,7 @@ def greedy_nms(boxes, scores, k: int, iou_thresh: float, score_thresh: float = -
     if groups is not None:
         iou = torch.where(groups[:, None] == groups[None, :], iou, 0.0)
     timing.count("det2d_nms_rounds", k)
-    j, s, ok = greedy_suppress(iou, scores, k, iou_thresh, -1e9, lambda s: s > score_thresh)
+    j, s, ok = greedy_suppress(iou, scores, k, iou_thresh, -1e9, score_thresh)
     kb = torch.where(ok[:, None], boxes.index_select(0, j), 0.0)
     return kb, torch.where(ok, s, 0.0), ok.to(torch.float32)
 

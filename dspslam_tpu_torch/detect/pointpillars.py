@@ -12,10 +12,10 @@ config_pointpillars.py) rebuilt from scratch:
   boxes
 
 Fixed-cap pillar tensors (max_pillars x max_points_per_pillar), a fixed-K
-NMS loop and no host sync between the point upload and the pinned copies
-of the boxes, so `Detector3D.dispatch` returns while the card works.
-Duplicate-index scatters are written so that their result has no defined
-winner to depend on: only valid entries carry values, and the BEV canvas
+NMS (kernels/greedy_nms.py) and no host sync between the point upload and
+the pinned copies of the boxes, so `Detector3D.dispatch` returns while the
+card works. Duplicate-index scatters are written so that their result has
+no defined winner to depend on: only valid entries carry values, and the BEV canvas
 is an accumulation onto zeros of unique live pillars. BatchNorm is folded
 into the weights at load time (`load_mmdet3d_checkpoint`).
 
@@ -38,13 +38,13 @@ import math
 import numpy as np
 import torch
 
+from ..kernels.greedy_nms import greedy_suppress
 from ..ops.rotated_iou import rotated_iou_matrix
 from ..slam.map import entry_device, to_torch
 from ..slam.tracking import _host_result, _prefetch_to_host
 from ..utils import timing
 from .layers import conv2d_same, conv_transpose2d, he_normal, top_k, tree_map, true_div
 from .layers import params_from_jax  # noqa: F401  (JAX numpy pytree -> tensors)
-from .maskrcnn import greedy_suppress
 
 
 @dataclasses.dataclass(frozen=True)
@@ -428,7 +428,7 @@ def select_detections(cls_logits, boxes, dir_logits, cfg: PointPillarsConfig):
     cand = torch.cat([cand[:, :6], (cand[:, 6] + flip * math.pi)[:, None]], dim=1)
     iou = rotated_iou_matrix(cand, cand)                  # (nms_pre, nms_pre)
     j, s, ok = greedy_suppress(iou, top_scores, cfg.max_detections, cfg.nms_iou_threshold, -1.0,
-                               lambda s: s >= cfg.score_threshold)
+                               cfg.score_threshold, keep_inclusive=True)
     keep_boxes = torch.where(ok[:, None], cand.index_select(0, j), 0.0)
     return keep_boxes, torch.where(ok, s, 0.0), ok.to(torch.float32)
 

@@ -1,7 +1,8 @@
 """Kernels K1 (csrc/decoder_fused.cu) and K2 (csrc/fast_score.cu) on the
 card, against their plain PyTorch versions, and the online detectors
-(MaskRCNN, PointPillars; plain PyTorch, no kernel of their own) on the card
-against their CPU runs, stage by stage on identical inputs. Every test here needs a CUDA device and skips without one. The
+(MaskRCNN, PointPillars; plain PyTorch but for their greedy NMS kernel,
+which tests/test_torch_nms_cuda.py holds to its loop) on the card against
+their CPU runs, stage by stage on identical inputs. Every test here needs a CUDA device and skips without one. The
 file imports neither JAX nor the JAX package, so on a machine with a card
 it runs without the JAX test harness:
 
@@ -31,6 +32,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False          # f32 convolutions, as the entry points set
     return torch.device("cuda")
 
 

@@ -159,20 +159,29 @@ def test_detect_float32_matches_jax(params):
     assert _rel(jo["mask_logits"], to["mask_logits"].numpy()) <= 1e-5
 
 
-def test_greedy_nms_planted_ties():
+# (rounds, score threshold): fewer rounds than boxes; the two ties at 0.6
+# that are picked sit on the threshold exactly (kept only above it, in f32);
+# rounds beyond the 24 boxes; and the RPN's threshold, at which the rounds
+# past the last live box pick dead slots that are not kept
+@pytest.mark.parametrize("k,thresh", [(10, -np.inf), (24, 0.3), (24, 0.6), (30, 0.05), (40, -1e9)],
+                         ids=["few_rounds", "mid", "at_threshold", "beyond_boxes", "rpn_beyond_live"])
+def test_greedy_nms_planted_ties(k, thresh):
     rng = np.random.default_rng(9)
     xy = rng.uniform(0, 40, (24, 2))
     boxes = np.concatenate([xy, xy + rng.uniform(4, 12, (24, 2))], -1).astype(np.float32)
     boxes[12:18] = boxes[:6] + 0.5                 # heavy overlaps
     scores = np.round(rng.uniform(0, 1, 24), 1).astype(np.float32)   # many exact ties
     scores[[3, 7, 12, 20]] = 1.0
-    for k, thresh in ((10, -np.inf), (24, 0.3), (30, 0.05)):
-        jb, js, jv = jmr.greedy_nms(jnp.asarray(boxes), jnp.asarray(scores), k, 0.5, score_thresh=thresh)
-        tb, ts, tv = tmr.greedy_nms(torch.from_numpy(boxes), torch.from_numpy(scores), k, 0.5,
-                                    score_thresh=thresh)
-        np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
-        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
-        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    jb, js, jv = jmr.greedy_nms(jnp.asarray(boxes), jnp.asarray(scores), k, 0.5, score_thresh=thresh)
+    tb, ts, tv = tmr.greedy_nms(torch.from_numpy(boxes), torch.from_numpy(scores), k, 0.5,
+                                score_thresh=thresh)
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    if thresh == 0.6:
+        assert tv.sum() == 11                      # 11 picks above 0.6; the two at 0.6 are not kept
+    if k > 24:                                     # every box is dead after 24 rounds
+        assert tv.sum() > 0 and tv[-1] == 0
 
 
 def test_top_k_ties_lower_index_first():

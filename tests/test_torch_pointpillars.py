@@ -166,7 +166,12 @@ def test_live_pillar_at_cell_00_survives_the_canvas_scatter(params):
     np.testing.assert_allclose(t_empty, j_empty, atol=2e-2 * np.abs(j_empty).max())
 
 
-def test_select_detections_planted_ties():
+# (candidates, rounds, score threshold): fewer rounds than candidates;
+# rounds beyond them; and logits of 0, whose sigmoid is 0.5 exactly, on a
+# threshold of 0.5 (kept at it: the keep test is >=)
+@pytest.mark.parametrize("nms_pre,max_det,thresh", [(64, 20, 0.1), (32, 40, 0.1), (64, 40, 0.5)],
+                         ids=["few_rounds", "beyond_candidates", "at_threshold"])
+def test_select_detections_planted_ties(nms_pre, max_det, thresh):
     A = 64
     rng = np.random.default_rng(7)
     boxes = np.zeros((A, 7), np.float32)
@@ -177,14 +182,17 @@ def test_select_detections_planted_ties():
     cls = np.round(rng.normal(0, 3, A)).astype(np.float32)    # integer logits: ties
     cls[[1, 5, 9, 30, 40]] = 25.0                              # saturated: sigmoid exactly 1
     dirs = rng.normal(size=(A, 2)).astype(np.float32)
-    for cfg_j in (dataclasses.replace(JCFG, nms_pre=A, max_detections=20),
-                  dataclasses.replace(JCFG, nms_pre=32, max_detections=40)):
-        cfg_t = tpp.PointPillarsConfig(**{f.name: getattr(cfg_j, f.name) for f in dataclasses.fields(cfg_j)})
-        j = jpp.select_detections(jnp.asarray(cls), jnp.asarray(boxes), jnp.asarray(dirs), cfg_j)
-        t = tpp.select_detections(torch.from_numpy(cls), torch.from_numpy(boxes), torch.from_numpy(dirs), cfg_t)
-        for a, b in zip(j, t):
-            np.testing.assert_array_equal(b.numpy(), np.asarray(a))
-        assert int(t[2].sum()) >= 2
+    cfg_j = dataclasses.replace(JCFG, nms_pre=nms_pre, max_detections=max_det, score_threshold=thresh)
+    cfg_t = tpp.PointPillarsConfig(**{f.name: getattr(cfg_j, f.name) for f in dataclasses.fields(cfg_j)})
+    j = jpp.select_detections(jnp.asarray(cls), jnp.asarray(boxes), jnp.asarray(dirs), cfg_j)
+    t = tpp.select_detections(torch.from_numpy(cls), torch.from_numpy(boxes), torch.from_numpy(dirs), cfg_t)
+    for a, b in zip(j, t):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    assert int(t[2].sum()) >= 2
+    if thresh == 0.5:
+        assert (t[1].numpy() == 0.5).any()                     # a pick at the threshold, kept
+    if max_det > nms_pre:                                      # every candidate is dead by then
+        assert t[2][-1] == 0
 
 
 def _by_cell(pillars, cfg):
