@@ -10,7 +10,11 @@ Port of dspslam_tpu/apps/dsp_slam_mono.py. Usage:
 
 Frames are the sequence's PNG / JPG images (image_0/ or the directory
 itself); detections come from the offline 2D labels the config names
-(`detection.path_label_2d`), the largest mask per frame. It writes
+(`detection.path_label_2d`), or, with `"detect_online": true` in the
+config's `detection` section, from Mask R-CNN run on each keyframe's image
+(its `detector_2d` block and `weight_path_2d`, built on `--device`; seeded
+random weights where no checkpoint is configured): the largest mask per
+frame either way. It writes
 MapPoints.txt, MapObjects.txt, Cameras.txt and trajectory_tum.txt to
 --map_dir. `--device` defaults to cuda; asking for cuda without a card is
 an error, never a silent run on the CPU. `--vocabulary` attaches
@@ -24,7 +28,8 @@ import argparse
 import os
 
 from .. import config as cfg_mod
-from ..datasets.mono import MonoSequence
+from ..datasets import kitti
+from ..datasets.mono import MonoSequence, object_class
 from ..frontend import orb
 from ..objects.mono_pipeline import MonoObjectPipeline
 from ..slam.system import SLAMSystem
@@ -55,7 +60,10 @@ def main(argv=None):
         system_cfg = cfg_mod.SystemConfig.from_reference_yaml(args.settings, base=system_cfg)
     cam = system_cfg.camera
     dist = (cam.k1, cam.k2, cam.p1, cam.p2, cam.k3)
-    seq = MonoSequence(args.sequence_dir, system_cfg.detection, cam.K, dist_coeffs=dist)
+    detector_2d = None
+    if not args.no_objects:
+        detector_2d = kitti.get_detector_2d(system_cfg.detection, object_class(system_cfg.data_type), device)
+    seq = MonoSequence(args.sequence_dir, system_cfg.detection, cam.K, dist_coeffs=dist, detector_2d=detector_2d)
     tracker_cfg = TrackerConfig(
         fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, bf=cam.baseline_fx, width=cam.width,
         height=cam.height, max_frames_between_kf=int(cam.fps), dist_coeffs=dist,

@@ -35,19 +35,33 @@ def detector_configs(det_cfg):
             _settings(pointpillars.PointPillarsConfig, getattr(det_cfg, "detector_3d", None)))
 
 
+def get_detector_2d(det_cfg, object_class: str = "cars", device=None):
+    """The online Mask R-CNN alone (reference reconstruct/__init__.py:1-13
+    for the mono sequences, which run no LiDAR): `Detector2D` on `device`
+    (None means cuda) keeping `object_class`'s labels, or None for offline
+    labels. Its settings are the configured `detector_2d` block; a
+    configured weight path that exists is ingested from the reference's
+    mmdet checkpoint, otherwise the network carries seeded random
+    weights."""
+    if det_cfg is None or not getattr(det_cfg, "detect_online", False):
+        return None
+    cfg_2d, _ = detector_configs(det_cfg)
+    w2d = getattr(det_cfg, "weight_path_2d", None)
+    params_2d = maskrcnn.load_mmdet_checkpoint(w2d, cfg_2d) if w2d and os.path.exists(w2d) else None
+    return maskrcnn.Detector2D(params=params_2d, cfg=cfg_2d, object_class=object_class, device=device)
+
+
 def get_detectors(det_cfg, object_class: str = "cars", device=None):
     """Online-detector factory (reference reconstruct/__init__.py:1-13):
     (detector_2d, detector_3d) on `device` (None means cuda), or (None,
-    None) for offline labels. The networks' settings are the configured
-    ones (`detector_configs`). Configured weight paths that exist are
-    ingested from the reference's mmdet / mmdet3d checkpoints; otherwise
-    the networks carry seeded random weights."""
-    if det_cfg is None or not getattr(det_cfg, "detect_online", False):
+    None) for offline labels. Mask R-CNN comes from `get_detector_2d`;
+    PointPillars takes the configured `detector_3d` block and, where its
+    configured weight path exists, the reference's mmdet3d checkpoint,
+    otherwise seeded random weights."""
+    det2d = get_detector_2d(det_cfg, object_class, device)
+    if det2d is None:
         return None, None
-    cfg_2d, cfg_3d = detector_configs(det_cfg)
-    w2d = getattr(det_cfg, "weight_path_2d", None)
-    params_2d = maskrcnn.load_mmdet_checkpoint(w2d, cfg_2d) if w2d and os.path.exists(w2d) else None
-    det2d = maskrcnn.Detector2D(params=params_2d, cfg=cfg_2d, object_class=object_class, device=device)
+    _, cfg_3d = detector_configs(det_cfg)
     w3d = getattr(det_cfg, "weight_path_3d", None)
     params_3d = (pointpillars.load_mmdet3d_checkpoint(w3d, cfg_3d)
                  if w3d and os.path.exists(w3d) else None)

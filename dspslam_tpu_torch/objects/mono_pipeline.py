@@ -20,6 +20,16 @@ With the canonical decoder on the card every GN iteration launches kernel
 K1 twice (surface points, then the render-Jacobian rows); `gn_calls`
 counts the calls and `expected_k1_launches()` turns them into launches.
 Meshes are extracted synchronously.
+
+Telemetry (`utils/timing.py`): spans `mono_assoc` (a keyframe's mask votes
+and association or birth), `mono_gn` (one joint GN call, up to its result
+on the host) and `mono_mesh` (one mesh extraction); counters `mono_dets`
+(keyframes with a detection), `mono_objects_born`, `mono_gn_calls`,
+`mono_gn_rows` (the calls' batch sizes summed) and `mono_meshes`. The
+joint GN is the attribute `self.recon`, the seed `cuboid`'s functions and
+the pick the module's `best_of` (the mesh's grid `shape.mesh`'s
+`decode_sdf_grid`), each called through its attribute, so that the
+benchmark's check can tap them.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import numpy as np
 
 from ..shape import gn, mesh as mesh_mod
 from ..slam.map import Map, MapObject, to_torch
+from ..utils import timing
 from . import cuboid
 from .detections import Detection
 from .pipeline import _decoder_device, _record_event
@@ -37,6 +48,17 @@ MIN_RAYS_RECON = 20
 WARMUP_KFS = 15
 RECON_EVERY = 5
 MIN_VOTES = 5
+
+
+def best_of(results: list) -> dict | None:
+    """The lowest-loss finite result, the first on a tie."""
+    best = None
+    for res in results:
+        if not np.isfinite(res["t_cam_obj"]).all():
+            continue
+        if best is None or res["loss"] < best["loss"]:
+            best = res
+    return best
 
 
 class MonoObjectPipeline:
@@ -78,7 +100,9 @@ class MonoObjectPipeline:
         self.kf_count += 1
         if not kf.detections:
             return
-        self._associate_or_create(kf)
+        timing.count("mono_dets")
+        with timing.span("mono_assoc"):
+            self._associate_or_create(kf)
         if self.kf_count >= self.warmup_kfs and self.kf_count % self.recon_every == 0:
             self._reconstruct_ready(kf)
 
@@ -126,6 +150,7 @@ class MonoObjectPipeline:
                 obj = MapObject(np.eye(4, dtype=np.float32), np.zeros(self.cfg.code_len, np.float32), kf.id)
                 obj.has_valid_pose = False
                 self.map.add_object(obj)
+                timing.count("mono_objects_born")
             obj.observations[kf.id] = det_idx
             kf.object_associations[det_idx] = obj.id
             for p in free_pts:
@@ -169,7 +194,7 @@ class MonoObjectPipeline:
                 candidates = [T_seed, cuboid.flipped_pose(T_seed)]
             else:
                 candidates = [obj.T_wo]
-            best = self._best_of(self._run_gn(kf, det, pts_w, candidates, obj.code))
+            best = best_of(self._run_gn(kf, det, pts_w, candidates, obj.code))
             if best is None or not best["is_good"]:
                 continue
             obj.set_pose_sim3((np.linalg.inv(kf.T_cw) @ best["t_cam_obj"]).astype(np.float32))
@@ -179,19 +204,10 @@ class MonoObjectPipeline:
             obj.has_valid_pose = True
             self.reconstructed.add(obj_id)
             if self.extract_meshes:
-                m = self.mesher.extract_mesh_from_code(obj.code)
+                with timing.span("mono_mesh"):
+                    m = self.mesher.extract_mesh_from_code(obj.code)
+                timing.count("mono_meshes")
                 obj.vertices, obj.faces = m["vertices"], m["faces"]
-
-    @staticmethod
-    def _best_of(results: list) -> dict | None:
-        """The lowest-loss finite result, the first on a tie."""
-        best = None
-        for res in results:
-            if not np.isfinite(res["t_cam_obj"]).all():
-                continue
-            if best is None or res["loss"] < best["loss"]:
-                best = res
-        return best
 
     def _run_gn(self, kf, det, pts_w, T_wo_candidates, code) -> list[dict]:
         """One joint GN call over the candidate initial poses (B of them),
@@ -224,12 +240,15 @@ class MonoObjectPipeline:
 
         codes = np.asarray(code, np.float32)[: self.cfg.code_len]
         args = [to_torch(T_co, self.device)] + [batch(a) for a in (pts, mask, rays, ray_mask, depth, fg, codes)]
-        start = _record_event(self.device, timing=True)
-        out = self.recon(*args)
-        stop = _record_event(self.device, timing=True)
+        with timing.span("mono_gn"):
+            start = _record_event(self.device, timing=True)
+            out = self.recon(*args)
+            stop = _record_event(self.device, timing=True)
+            res = {k: v.cpu().numpy() for k, v in out.items()}
         self.gn_calls += 1
         self.gn_batches.append(B)
-        res = {k: v.cpu().numpy() for k, v in out.items()}
+        timing.count("mono_gn_calls")
+        timing.count("mono_gn_rows", B)
         if start is not None:
             self.gn_device_ms.append(start.elapsed_time(stop))
         return [{"t_cam_obj": res["t_cam_obj"][b], "code": res["code"][b],

@@ -41,6 +41,7 @@ from dspslam_tpu.slam import tracking as jtracking
 from dspslam_tpu_torch.frontend import orb as torb
 from dspslam_tpu_torch.models import deepsdf as tdeepsdf
 from dspslam_tpu_torch.objects.detections import Detection as TDetection
+from dspslam_tpu_torch.objects import mono_pipeline as tmono
 from dspslam_tpu_torch.objects.mono_pipeline import MonoObjectPipeline as TMono
 from dspslam_tpu_torch.shape import gn as tgn
 from dspslam_tpu_torch.slam import map as tmap
@@ -179,4 +180,4 @@ def test_flip_call_picks_jax_candidate():
         assert np.abs(o["t_cam_obj"] - r["t_cam_obj"]).max() <= 1e-3
     j_best = 0 if ref[0]["loss"] <= ref[1]["loss"] else 1
     assert abs(ref[0]["loss"] - ref[1]["loss"]) > 1e-2 * abs(ref[j_best]["loss"])   # a real choice
-    assert tp._best_of(out) is out[j_best]
+    assert tmono.best_of(out) is out[j_best]
